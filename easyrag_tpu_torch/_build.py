@@ -1,0 +1,76 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; load with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
+one file compiles in seconds. The shared library lands in ``build/kernels/``
+at the repository root (git-ignored), under a name that hashes the source and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded. A missing ``nvcc`` or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernels"
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: ``nvcc``'s stderr per kernel library (ptxas register / spill report)
+build_logs: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` or ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` as a shared library."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = os.path.join(CSRC_DIR, f"{name}.cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        out = os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.run(
+                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                capture_output=True,
+                text=True,
+            )
+            build_logs[name] = proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(out)
+        _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

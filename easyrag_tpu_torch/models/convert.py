@@ -1,0 +1,58 @@
+"""JAX parameter trees -> the port's modules.
+
+The tree is ``easyrag_tpu.models.layers.init_params``'s layout plus
+``heads`` (layer -> ``[1, hidden]``), with every leaf a numpy array. Both
+packages store linear weights ``[out, in]``, so leaves copy over unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .layers import DecoderConfig
+from .minicpm import MiniCPMLayerWiseReranker
+
+
+def minicpm_from_jax(
+    cfg: DecoderConfig,
+    params_np: Dict[str, Any],
+    device,
+    dtype: torch.dtype,
+    tokenizer,
+    **scorer_kwargs,
+) -> MiniCPMLayerWiseReranker:
+    """A :class:`MiniCPMLayerWiseReranker` holding ``params_np``'s weights
+    (dense bf16/f32 trees only; heads stay f32)."""
+    model = MiniCPMLayerWiseReranker(cfg, tokenizer, device=device, dtype=dtype, **scorer_kwargs)
+
+    def put(param: torch.Tensor, leaf) -> None:
+        if not hasattr(leaf, "__array__"):
+            raise NotImplementedError(
+                f"quantized or non-dense leaf {type(leaf).__name__}: only dense weights are ported (ROADMAP Queue 1, item 4)"
+            )
+        arr = np.array(leaf, dtype=np.float32).reshape(param.shape)
+        param.copy_(torch.from_numpy(arr))
+
+    def dense(p: Dict[str, Any]):
+        if set(p) != {"w"}:
+            raise NotImplementedError(
+                f"linear with {sorted(p)}: biases and int8/w8a8/int4 weights are not ported (ROADMAP Queue 1, item 4)"
+            )
+        return p["w"]
+
+    with torch.no_grad():
+        put(model.embed, params_np["embed"])
+        put(model.final_norm, params_np["final_norm"])
+        for layer, p in zip(model.layers, params_np["layers"], strict=True):
+            put(layer.input_norm, p["input_norm"])
+            put(layer.post_norm, p["post_norm"])
+            for name in ("q", "k", "v", "o"):
+                put(getattr(layer, name), dense(p["attn"][name]))
+            for name in ("gate", "up", "down"):
+                put(getattr(layer, name), dense(p["mlp"][name]))
+        for layer_idx, w in params_np["heads"].items():
+            put(model.heads[int(layer_idx)], w)
+    return model

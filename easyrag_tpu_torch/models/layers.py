@@ -1,0 +1,119 @@
+"""Decoder core (port of ``easyrag_tpu/models/layers.py``, the MiniCPM slice).
+
+Dense bf16/f32 weights stored ``[out, in]`` as in the JAX tree; RMSNorm in
+f32; rotate-half RoPE from batch-shared positions; attention through the K1
+port (``ops/flash64.py``) for head_dim-64 multi-head attention and through
+the einsum formulation otherwise; SiLU MLP; MiniCPM's residual scale
+``scale_depth / sqrt(num_layers)`` and embedding scale ``scale_emb``.
+Padding is a per-row key range ``[kv_start, kv_end)`` instead of a mask.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash64 import apply_rope, flash64_attention, masked_attention
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_hidden_layers: int
+    num_attention_heads: int
+    num_key_value_heads: int
+    head_dim: Optional[int] = None
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    # MiniCPM mup-style scalings (1.0 / 0.0 = disabled)
+    scale_emb: float = 1.0
+    scale_depth: float = 0.0
+    dim_model_base: float = 0.0
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @property
+    def residual_scale(self) -> float:
+        if self.scale_depth:
+            return self.scale_depth / (self.num_hidden_layers ** 0.5)
+        return 1.0
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def rope_tables(seq_len: int, head_dim: int, theta: float, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 rotate-half cos/sin tables ``[S, head_dim]`` for positions
+    ``0..S-1``."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    angles = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None] * inv_freq[None, :]
+    angles = torch.cat([angles, angles], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _weight(n_out: int, n_in: int, **kw) -> nn.Parameter:
+    return nn.Parameter(torch.empty(n_out, n_in, **kw), requires_grad=False)
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm attention + SiLU MLP block with MiniCPM's residual scale."""
+
+    def __init__(self, cfg: DecoderConfig, device=None, dtype=None) -> None:
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d, hd, nh, nkv = cfg.hidden_size, cfg.hd, cfg.num_attention_heads, cfg.num_key_value_heads
+        self.cfg = cfg
+        self.input_norm = nn.Parameter(torch.ones(d, **kw), requires_grad=False)
+        self.q = _weight(nh * hd, d, **kw)
+        self.k = _weight(nkv * hd, d, **kw)
+        self.v = _weight(nkv * hd, d, **kw)
+        self.o = _weight(d, nh * hd, **kw)
+        self.post_norm = nn.Parameter(torch.ones(d, **kw), requires_grad=False)
+        self.gate = _weight(cfg.intermediate_size, d, **kw)
+        self.up = _weight(cfg.intermediate_size, d, **kw)
+        self.down = _weight(d, cfg.intermediate_size, **kw)
+
+    def attention(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+        q, k, v = F.linear(x, self.q), F.linear(x, self.k), F.linear(x, self.v)
+        scale = hd ** -0.5
+        if hd == 64 and nkv == nh:
+            out = flash64_attention(q, k, v, kv_start, kv_end, scale, cos, sin)
+        else:
+            qh = apply_rope(q.reshape(b, s, nh, hd), cos[None], sin[None])
+            kh = apply_rope(k.reshape(b, s, nkv, hd), cos[None], sin[None])
+            vh = v.reshape(b, s, nkv, hd)
+            if nkv != nh:  # grouped-query attention: KV shared over query groups
+                kh = kh.repeat_interleave(nh // nkv, dim=2)
+                vh = vh.repeat_interleave(nh // nkv, dim=2)
+            out = masked_attention(qh, kh, vh, kv_start, kv_end, scale).reshape(b, s, nh * hd)
+        return F.linear(out, self.o)
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(F.silu(F.linear(x, self.gate)) * F.linear(x, self.up), self.down)
+
+    def forward(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
+        r = self.cfg.residual_scale
+        eps = self.cfg.rms_norm_eps
+        h = self.attention(rms_norm(x, self.input_norm, eps), kv_start, kv_end, cos, sin)
+        x = x + h * r
+        h = self.mlp(rms_norm(x, self.post_norm, eps))
+        return x + h * r
+
+
+def embed(cfg: DecoderConfig, table: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+    h = F.embedding(input_ids.long(), table)
+    return h * cfg.scale_emb if cfg.scale_emb != 1.0 else h

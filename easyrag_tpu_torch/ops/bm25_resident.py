@@ -1,0 +1,317 @@
+"""Device-resident BM25 index (port of ``easyrag_tpu/ops/bm25_resident.py``).
+
+The index lives on the device once; a query uploads only its term ids and
+counts. Zipf-aware split, as in the reference:
+
+* **heavy terms** (more than ``light_cap`` postings): their contribution rows
+  form a dense f32 ``[H, N]`` matrix. A query batch's heavy part is either a
+  row gather with a weighted sum over its term slots (``B*T < H``) or a
+  one-hot ``[B, H] @ [H, N]`` matmul; both in full f32 (TF32 must be off).
+* **light terms**: each term's <= ``light_cap`` postings, as a padded
+  term-major ``[V+1, C]`` table (``rows``) or through the CSR arrays with a
+  bounded window (``csr``), are scatter-added into the scores.
+
+The light scatter is deterministic on CUDA: one ``index_add_`` per term slot,
+in slot order. A term's doc ids are unique, so no launch has two writes to
+one address and the float atomics never race; the per-doc sum order is the
+term-slot order, the reference's flat scatter order.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..index.sparse import SparseIndex
+from .bm25 import filter_topk
+
+
+def check_no_tf32() -> None:
+    """BM25's heavy part must run in full f32, like the reference's
+    ``Precision.HIGHEST``: with TF32, near-tied scores reorder."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False for BM25 scoring")
+
+
+def auto_light_cap(lens: np.ndarray, num_docs: int, itemsize: int, heavy_hbm_budget: int) -> int:
+    """The smallest power-of-two cap (>= 8) whose heavy matrix fits the
+    device-memory budget, else ``num_docs`` (every term light). The
+    reference's cost model on top of this gate was fitted to TPU v5e
+    timings and is not carried over."""
+    c = 8
+    while c < max(num_docs, 16):
+        if int((lens > c).sum()) * num_docs * itemsize <= heavy_hbm_budget:
+            return c
+        c *= 2
+    return num_docs
+
+
+class ResidentSparseIndex:
+    def __init__(
+        self,
+        index: SparseIndex,
+        light_cap: Optional[int] = None,
+        max_query_terms: int = 64,
+        heavy_hbm_budget: int = 512 * 1024 * 1024,
+        heavy_dtype: str = "float32",
+        tail: Optional[str] = None,
+        light_rows: Optional[bool] = None,
+        light_rows_hbm_budget: int = 256 * 1024 * 1024,
+        device: torch.device | str = "cpu",
+    ) -> None:
+        """``light_rows`` forces the light layout (None: ``rows`` when its
+        ``(V+1)*C*8``-byte table fits ``light_rows_hbm_budget``)."""
+        if heavy_dtype in ("bfloat16", "int8"):
+            raise NotImplementedError(
+                f"heavy_dtype={heavy_dtype!r}: compressed heavy storage is not ported yet (ROADMAP Queue 1, item 2)"
+            )
+        if heavy_dtype != "float32":
+            raise ValueError(f"unsupported heavy_dtype {heavy_dtype!r}")
+        if tail in ("pallas", "pallas_interpret"):
+            raise NotImplementedError(
+                f"tail={tail!r}: the K5 light tail is not ported yet (ROADMAP Queue 1, item 2)"
+            )
+        if tail not in (None, "xla"):
+            raise ValueError(f"unsupported tail {tail!r}")
+        self.device = torch.device(device)
+        self.host_index = index
+        self.num_docs = N = index.num_docs
+        self.max_query_terms = max_query_terms
+
+        offs = index.stats.term_offsets
+        lens = np.diff(offs).astype(np.int64)
+        V = len(lens)
+        if light_cap is None:
+            light_cap = auto_light_cap(lens, N, 4, heavy_hbm_budget)
+        self.light_cap = C = light_cap
+        heavy_terms = np.where(lens > C)[0]
+        H = ((max(len(heavy_terms), 1) + 7) // 8) * 8
+
+        heavy = np.zeros((H, N), dtype=np.float32)
+        heavy_row = np.full(V + 1, -1, dtype=np.int64)  # +1: the pad term
+        for row, t in enumerate(heavy_terms):
+            lo, hi = offs[t], offs[t + 1]
+            heavy[row, index.stats.post_docs[lo:hi]] = index.post_vals[lo:hi]
+            heavy_row[t] = row
+        starts = np.zeros(V + 1, dtype=np.int64)
+        starts[:V] = offs[:-1]
+        light_lens = np.zeros(V + 1, dtype=np.int64)
+        light_lens[:V] = lens
+        light_lens[heavy_terms] = 0
+        P = len(index.stats.post_docs)
+        # one sentinel slot at the end: doc id N, value 0
+        post_docs = np.append(index.stats.post_docs.astype(np.int64), N)
+        post_vals = np.append(index.post_vals.astype(np.float32), np.float32(0))
+
+        self.V, self.P = V, P
+        self._host_light_lens = light_lens
+        if light_rows is None:
+            light_rows = (V + 1) * C * 8 <= light_rows_hbm_budget
+        self.light_layout = "rows" if light_rows else "csr"
+        if light_rows:
+            win = np.arange(C, dtype=np.int64)[None, :]
+            pos = np.where(win < light_lens[:, None], starts[:, None] + win, P)
+            post_docs, post_vals = post_docs[pos], post_vals[pos]
+
+        dev = self.device
+        self.heavy = torch.from_numpy(heavy).to(dev)
+        self.t_heavy_row = torch.from_numpy(heavy_row).to(dev)
+        self.t_starts = torch.from_numpy(starts).to(dev)
+        self.t_light_lens = torch.from_numpy(light_lens).to(dev)
+        self.post_docs = torch.from_numpy(post_docs).to(dev)
+        self.post_vals = torch.from_numpy(post_vals).to(dev)
+        self.dir_col = (
+            torch.from_numpy(index.dir_ids.astype(np.int32)).to(dev)
+            if index.dir_ids is not None
+            else None
+        )
+        self.dir_vocab = index.dir_vocab
+
+    # -- host-side query prep -------------------------------------------------
+
+    def query_terms(self, query_tokens: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Tokens -> ``(term_ids[T], counts[T])``, padded with the sentinel
+        term ``V``, light terms first. Duplicate tokens become counts. Raises
+        ``ValueError`` past ``max_query_terms`` distinct terms."""
+        vocab = self.host_index.stats.vocab
+        counts: dict = {}
+        for tok in query_tokens:
+            tid = vocab.get(tok)
+            if tid is not None:
+                counts[tid] = counts.get(tid, 0) + 1
+        T = self.max_query_terms
+        if len(counts) > T:
+            raise ValueError(f"query has {len(counts)} distinct terms > max_query_terms={T}")
+        ids = np.full(T, self.V, dtype=np.int64)
+        cnt = np.zeros(T, dtype=np.float32)
+        items = sorted(counts.items(), key=lambda tc: self._host_light_lens[tc[0]] == 0)
+        for i, (tid, c) in enumerate(items):
+            ids[i] = tid
+            cnt[i] = c
+        return ids, cnt
+
+    def query_terms_batch(self, queries_tokens: Sequence[Sequence[str]]) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`query_terms` over many queries: ``(ids[Q, T], counts[Q, T])``
+        (term order within a row may differ; scoring sums over terms)."""
+        vocab = self.host_index.stats.vocab
+        Q, T, V = len(queries_tokens), self.max_query_terms, self.V
+        qidx: List[int] = []
+        tids: List[int] = []
+        for i, toks in enumerate(queries_tokens):
+            for tok in toks:
+                tid = vocab.get(tok)
+                if tid is not None:
+                    qidx.append(i)
+                    tids.append(tid)
+        ids = np.full((Q, T), V, dtype=np.int64)
+        cnt = np.zeros((Q, T), dtype=np.float32)
+        if qidx:
+            key = np.asarray(qidx, np.int64) * (V + 1) + np.asarray(tids, np.int64)
+            uniq, counts = np.unique(key, return_counts=True)
+            rows = uniq // (V + 1)
+            terms = uniq % (V + 1)
+            pos = np.arange(len(rows)) - np.searchsorted(rows, np.arange(Q))[rows]
+            if int(pos.max()) >= T:
+                bad = int(rows[int(pos.argmax())])
+                raise ValueError(
+                    f"query has {int((rows == bad).sum())} distinct terms > max_query_terms={T}"
+                )
+            ids[rows, pos] = terms
+            cnt[rows, pos] = counts
+            order = np.argsort(self._host_light_lens[ids] == 0, axis=1, kind="stable")
+            ids = np.take_along_axis(ids, order, axis=1)
+            cnt = np.take_along_axis(cnt, order, axis=1)
+        return ids, cnt
+
+    def light_t_bound(self, ids: np.ndarray) -> int:
+        """How many leading term slots hold light terms in any row (the
+        light scatter's slot count)."""
+        cols = (self._host_light_lens[np.asarray(ids).reshape(-1, ids.shape[-1])] > 0).any(axis=0)
+        return int(np.nonzero(cols)[0].max()) + 1 if cols.any() else 0
+
+    # -- device scoring ---------------------------------------------------------
+
+    def _score_topk(
+        self,
+        term_ids: torch.Tensor,  # [B, T] int64
+        counts: torch.Tensor,  # [B, T] f32
+        k: int,
+        dir_filter: Optional[torch.Tensor] = None,  # [B] int32
+        light_t: Optional[int] = None,
+        heavy_form: str = "auto",
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Scores + filter + top-k for one batch of prepped queries.
+        ``heavy_form``: ``auto`` (gather when ``B*T < H``), ``gather`` or
+        ``matmul``."""
+        if self.device.type == "cuda":
+            check_no_tf32()
+        B, T = term_ids.shape
+        N, C, H = self.num_docs, self.light_cap, self.heavy.shape[0]
+        hrow = self.t_heavy_row[term_ids]
+        is_heavy = hrow >= 0
+        w = torch.where(is_heavy, counts, 0.0)
+        use_gather = B * T < H if heavy_form == "auto" else heavy_form == "gather"
+        if use_gather:
+            g = self.heavy[torch.where(is_heavy, hrow, 0)]  # [B, T, N]
+            scores = torch.bmm(w[:, None, :], g)[:, 0, :]
+        else:
+            # term ids are unique within a row: no two adds hit one slot
+            A = torch.zeros((B, H + 1), dtype=torch.float32, device=self.device)
+            A.scatter_add_(1, torch.where(is_heavy, hrow, H), w)
+            scores = A[:, :H] @ self.heavy
+
+        TL = T if light_t is None else light_t
+        lt_ids, lt_counts = term_ids[:, :TL], counts[:, :TL]
+        if self.light_layout == "rows":
+            docs = self.post_docs[lt_ids]  # [B, TL, C]; pad slots -> N
+            vals = self.post_vals[lt_ids] * lt_counts[:, :, None]
+        else:
+            win = torch.arange(C, device=self.device)
+            valid = win < self.t_light_lens[lt_ids][:, :, None]
+            pos = torch.where(valid, self.t_starts[lt_ids][:, :, None] + win, self.P)
+            docs = self.post_docs[pos]
+            vals = self.post_vals[pos] * lt_counts[:, :, None]
+        # flat scatter into [B*N + 1]; sentinel docs route to the last slot
+        flat = torch.cat([scores.reshape(-1), scores.new_zeros(1)])
+        b_off = torch.arange(B, device=self.device)[:, None] * N
+        for t in range(TL):
+            d = docs[:, t, :]
+            flat.index_add_(0, torch.where(d < N, b_off + d, B * N).reshape(-1), vals[:, t, :].reshape(-1))
+        scores = flat[: B * N].reshape(B, N)
+        return filter_topk(scores, k, self.dir_col, dir_filter)
+
+    def _upload(self, ids: np.ndarray, cnts: np.ndarray):
+        return torch.from_numpy(ids).to(self.device), torch.from_numpy(cnts).to(self.device)
+
+    def score_topk(
+        self,
+        queries_tokens: Sequence[Sequence[str]],
+        k: int,
+        dir_values: Optional[Sequence[Optional[str]]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched query -> ``(scores[B, k], doc indices[B, k])`` host arrays;
+        dropped entries are ``(-inf, num_docs)``."""
+        ids, cnts = self.query_terms_batch(queries_tokens)
+        dir_f = None
+        if dir_values is not None and self.dir_col is not None:
+            # -1: no filter; -2: a dir the index does not know (matches nothing)
+            dir_f = torch.tensor(
+                [self.dir_vocab.get(d, -2) if d else -1 for d in dir_values], dtype=torch.int32, device=self.device
+            )
+        tv, ti = self._score_topk(*self._upload(ids, cnts), k, dir_f, self.light_t_bound(ids))
+        return tv.cpu().numpy(), ti.cpu().numpy()
+
+    def stream_score_topk(
+        self,
+        queries_tokens: Sequence[Sequence[str]],
+        k: int,
+        batch: int = 64,
+        dir_values: Optional[Sequence[Optional[str]]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """A whole query stream in batches of ``batch`` (the reference's
+        scan over batches): ``(scores[Q, k], indices[Q, k])``."""
+        parts = [
+            self.score_topk(
+                queries_tokens[lo : lo + batch],
+                k,
+                None if dir_values is None else dir_values[lo : lo + batch],
+            )
+            for lo in range(0, len(queries_tokens), batch)
+        ]
+        if not parts:
+            return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
+        return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+class DualResidentScorer:
+    """Both routes of the default retrieval (content with the dir filter,
+    know-path without) scored for one query batch."""
+
+    def __init__(self, content: ResidentSparseIndex, path: ResidentSparseIndex):
+        if content.num_docs != path.num_docs:
+            raise ValueError("dual routes must index the same node list")
+        self.content = content
+        self.path = path
+
+    def score_topk(self, query_tokens_batch, k_content: int, k_path: int, dir_fs):
+        """Tokenized queries -> ``((tv1, ti1), (tv2, ti2))`` host arrays.
+        ``dir_fs``: per-row filter ints (-1 none, -2 never-match)."""
+        c, p = self.content, self.path
+        ids1, cnt1 = c.query_terms_batch(query_tokens_batch)
+        ids2, cnt2 = p.query_terms_batch(query_tokens_batch)
+        dir_f = torch.from_numpy(np.asarray(dir_fs, dtype=np.int32)).to(c.device)
+        tv1, ti1 = c._score_topk(*c._upload(ids1, cnt1), k_content, dir_f, c.light_t_bound(ids1))
+        tv2, ti2 = p._score_topk(*p._upload(ids2, cnt2), k_path, None, p.light_t_bound(ids2))
+        return (tv1.cpu().numpy(), ti1.cpu().numpy()), (tv2.cpu().numpy(), ti2.cpu().numpy())
+
+    def stream_score_topk(self, query_tokens_batch, k_content: int, k_path: int, dir_fs, batch: int = 64):
+        """:meth:`score_topk` over a whole query stream in batches."""
+        parts = [
+            self.score_topk(query_tokens_batch[lo : lo + batch], k_content, k_path, dir_fs[lo : lo + batch])
+            for lo in range(0, len(query_tokens_batch), batch)
+        ]
+        return tuple(
+            tuple(np.concatenate([pt[route][j] for pt in parts]) for j in range(2)) for route in range(2)
+        )

@@ -1,0 +1,80 @@
+"""BM25 postings scatter (the port of ``easyrag_tpu`` K5,
+``ops/bm25_pallas.py::bm25_scores_pallas``).
+
+``bm25_scores(doc_ids, vals, num_docs)`` turns gathered postings into a dense
+score vector: ``s[d] = sum_p vals[p] * [doc_ids[p] == d]`` in exact f32, ids
+outside ``[0, num_docs)`` dropped (the sentinel ``num_docs`` carries value 0).
+CUDA tensors go through ``csrc/bm25_scatter.cu``, which adds each doc's
+postings in posting order without atomics, so the result is the same on every
+run; CPU tensors go through :func:`bm25_scores_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+#: kernel launches made by :func:`bm25_scores` (read and reset by callers)
+launches = 0
+
+
+def bm25_scores_plain(doc_ids: torch.Tensor, vals: torch.Tensor, num_docs: int) -> torch.Tensor:
+    """Plain PyTorch version: scatter-add into a sentinel slot that is cut
+    off. ``[P]`` or ``[B, P]`` in, ``[N]`` or ``[B, N]`` f32 out."""
+    squeeze = doc_ids.dim() == 1
+    ids = (doc_ids[None] if squeeze else doc_ids).long()
+    v = (vals[None] if squeeze else vals).float()
+    B = ids.shape[0]
+    valid = (ids >= 0) & (ids < num_docs)
+    row = torch.arange(B, device=ids.device)[:, None] * (num_docs + 1)
+    flat = torch.where(valid, row + ids, row + num_docs).reshape(-1)
+    out = torch.zeros(B * (num_docs + 1), dtype=torch.float32, device=ids.device)
+    out.index_add_(0, flat, torch.where(valid, v, 0.0).reshape(-1))
+    out = out.reshape(B, num_docs + 1)[:, :num_docs]
+    return out[0] if squeeze else out
+
+
+def _lib():
+    lib = _build.load("bm25_scatter")
+    if not getattr(lib, "_argtypes_set", False):
+        p = ctypes.c_void_p
+        lib.bm25_scores_launch.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        lib.bm25_scores_launch.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+def bm25_scores(doc_ids: torch.Tensor, vals: torch.Tensor, num_docs: int) -> torch.Tensor:
+    """Dense BM25 scores from gathered postings; ``[P]`` or ``[B, P]``."""
+    if doc_ids.shape != vals.shape or doc_ids.dim() not in (1, 2):
+        raise ValueError(f"doc_ids {tuple(doc_ids.shape)} / vals {tuple(vals.shape)}: need equal [P] or [B, P]")
+    if doc_ids.device != vals.device:
+        raise ValueError("doc_ids and vals must be on one device")
+    if doc_ids.device.type == "cpu":
+        return bm25_scores_plain(doc_ids, vals, num_docs)
+    if doc_ids.device.type != "cuda":
+        raise RuntimeError(f"bm25_scores: no kernel for device {doc_ids.device}")
+    if doc_ids.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise TypeError(f"bm25_scores kernel takes int32 ids and float32 vals, got {doc_ids.dtype}/{vals.dtype}")
+    if not (doc_ids.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("bm25_scores kernel needs contiguous inputs")
+    if num_docs >= 2**31:
+        raise ValueError(f"num_docs {num_docs} does not fit int32 ids")
+    squeeze = doc_ids.dim() == 1
+    ids2 = doc_ids[None] if squeeze else doc_ids
+    B, P = ids2.shape
+    out = torch.empty((B, num_docs), dtype=torch.float32, device=doc_ids.device)
+    global launches
+    with torch.cuda.device(doc_ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(
+            _lib().bm25_scores_launch(
+                ids2.data_ptr(), vals.data_ptr(), out.data_ptr(), B, P, num_docs, stream
+            ),
+            "bm25_scores_launch",
+        )
+    launches += 1
+    return out[0] if squeeze else out

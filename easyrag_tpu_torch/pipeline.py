@@ -1,0 +1,223 @@
+"""EasyRAGPipeline on the default route (port of ``easyrag_tpu/pipeline.py``).
+
+``run(query)`` mirrors the reference's ``generation_with_knowledge_retrieval``
+(``pipeline.py:351-391``): content BM25 (top ``f_topk_2``) and know-path BM25
+(top ``f_topk_3``), both resident on the device and scored together for the
+query, content fusion, the injected reranker (``LLMRerank`` over the port's
+MiniCPM scorer), the top contexts into the QA template, and generation through
+the injected LLM. Every other route or option of the config raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from easyrag_tpu.config import EasyRAGConfig
+from easyrag_tpu.corpus.extractors import run_extractors
+from easyrag_tpu.corpus.reader import read_data
+from easyrag_tpu.corpus.splitter import SentenceSplitter
+from easyrag_tpu.corpus.tokenizer import JiebaTokenizer, default_stopwords, load_stopwords
+from easyrag_tpu.corpus.views import get_node_content
+from easyrag_tpu.generation import CompletionResponse, OpenAICompatLLM, generation
+from easyrag_tpu.schema import NodeWithScore, QueryBundle, build_nodeid2idx
+from easyrag_tpu.templates import MERGE_TEMPLATE, QA_TEMPLATE, PromptTemplate
+from easyrag_tpu.utils.events import emit
+
+from .ops.bm25_resident import DualResidentScorer
+from .retrievers import BM25Retriever, HybridRetriever
+
+
+@contextlib.contextmanager
+def _timed(name: str):
+    """``utils.events.trace`` without its profiler hook, which imports jax."""
+    start = time.perf_counter()
+    yield
+    emit("timing", {"name": name, "seconds": time.perf_counter() - start})
+
+
+def _check_supported(cfg: EasyRAGConfig, reranker) -> None:
+    """The slice ports the default route only; say which ROADMAP item
+    covers anything else."""
+    unported = [
+        (cfg.retrieval_type != 2, f"retrieval_type={cfg.retrieval_type}: the dense route is ROADMAP Queue 1, item 10"),
+        (cfg.rerank_fusion_type != 0, f"rerank_fusion_type={cfg.rerank_fusion_type}: needs the dense route, ROADMAP Queue 1, item 10"),
+        (cfg.split_type != 0, "split_type=1: hierarchical auto-merge retrieval is ROADMAP Queue 1, item 7"),
+        (cfg.hyde or cfg.hyde_merging, "HyDE is ROADMAP Queue 1, item 7"),
+        (bool(cfg.index_artifact_path), "index_artifact_path: the corpus artifact is ROADMAP Queue 1, item 7"),
+        (bool(cfg.local_llm_name), "local_llm_name: the local decoder is ROADMAP Queue 1, item 8"),
+        (bool(cfg.compress_method), "compress_method: context compression is ROADMAP Queue 1, item 7"),
+        (bool(cfg.tpu.shard_index or cfg.tpu.mesh_shape), "sharded indexes are ROADMAP Queue 1, item 13"),
+        (reranker is None and cfg.use_reranker != 0,
+         "loading a reranker by name needs the registry and loader, ROADMAP Queue 1, items 5 and 7; pass reranker="),
+    ]
+    for bad, why in unported:
+        if bad:
+            raise NotImplementedError(why)
+
+
+class EasyRAGPipeline:
+    def __init__(
+        self,
+        config: EasyRAGConfig | Dict[str, Any],
+        llm=None,
+        reranker=None,
+        documents=None,
+        sparse_tokenizer=None,
+        splitter=None,
+        device: torch.device | str = "cpu",
+    ) -> None:
+        """``sparse_tokenizer`` tokenizes for BM25 (default: jieba, as the
+        reference); ``splitter`` chunks the documents (default: the
+        reference's ``SentenceSplitter(chunk_size, chunk_overlap)``, whose
+        default token counter wants a tiktoken table)."""
+        if isinstance(config, dict):
+            config = EasyRAGConfig.from_dict(config)
+        _check_supported(config, reranker)
+        self.config = cfg = config
+        self.device = torch.device(device)
+        self.re_only = cfg.re_only
+        self.llm_embed_type = cfg.llm_embed_type
+        self.ans_refine_type = cfg.ans_refine_type
+        if llm is not None:
+            self.llm = llm
+        elif cfg.llm_keys:
+            self.llm = OpenAICompatLLM(api_keys=cfg.llm_keys, model=cfg.llm_name, api_base=cfg.llm_api_base)
+        else:
+            self.llm = None
+        self.qa_template = PromptTemplate(QA_TEMPLATE)
+        self.merge_template = PromptTemplate(MERGE_TEMPLATE)
+
+        data_path = os.path.abspath(cfg.data_path)
+        self.stp_words = load_stopwords(cfg.stopwords_path) if cfg.stopwords_path else default_stopwords()
+        self.sparse_tk = sparse_tokenizer if sparse_tokenizer is not None else JiebaTokenizer()
+        if documents is None:
+            documents = read_data(data_path)
+        emit("ingestion", {"documents": len(documents)})
+        if splitter is None:
+            splitter = SentenceSplitter(chunk_size=cfg.chunk_size, chunk_overlap=cfg.chunk_overlap)
+        self.nodes = splitter.parse_documents(documents)
+        run_extractors(self.nodes, data_path=data_path)
+        emit("chunking", {"nodes": len(self.nodes)})
+        self.nodeid2idx = build_nodeid2idx(self.nodes)
+        self._ctx_cache: Dict[int, str] = {}
+
+        route = dict(
+            nodes=self.nodes,
+            tokenizer=self.sparse_tk,
+            stopwords=self.stp_words,
+            bm25_type=cfg.bm25_type,
+            max_query_postings=cfg.tpu.max_query_postings,
+            use_pallas=cfg.tpu.use_pallas,
+            max_query_terms=cfg.tpu.max_query_terms,
+            heavy_dtype=cfg.tpu.sparse_heavy_dtype,
+            heavy_hbm_budget=cfg.tpu.sparse_heavy_hbm_budget,
+            light_rows_hbm_budget=cfg.tpu.sparse_light_rows_hbm_budget,
+            device=self.device,
+        )
+        self.sparse_retriever = BM25Retriever(similarity_top_k=cfg.f_topk_2, embed_type=cfg.f_embed_type_2, **route)
+        self.path_retriever = None
+        self._dual_scorer = None
+        if cfg.f_topk_3 != 0:
+            self.path_retriever = BM25Retriever(similarity_top_k=cfg.f_topk_3, embed_type=5, **route)  # know_path
+            self._dual_scorer = DualResidentScorer(self.sparse_retriever._resident, self.path_retriever._resident)
+        self.reranker = reranker
+
+    # -- query-time helpers ---------------------------------------------------
+
+    def build_filters(self, query: Dict[str, Any]) -> Tuple[Optional[str], Optional[Dict]]:
+        """``query["document"]`` -> (dense dir filter, sparse filter dict)
+        (``pipeline.py:301-312``)."""
+        if query.get("document", "") != "":
+            return query["document"], {"dir": query["document"]}
+        return None, None
+
+    def get_node_content(self, node) -> str:
+        """The ``llm_embed_type`` view of a node, cached by corpus index."""
+        inner = node.node if isinstance(node, NodeWithScore) else node
+        idx = getattr(inner, "idx", -1)
+        cached = self._ctx_cache.get(idx) if idx >= 0 else None
+        if cached is None:
+            cached = get_node_content(
+                inner, embed_type=self.llm_embed_type, nodes=self.nodes, nodeid2idx=self.nodeid2idx
+            )
+            if idx >= 0:
+                self._ctx_cache[idx] = cached
+        return cached
+
+    async def generation(self, llm, prompt: str) -> CompletionResponse:
+        if llm is None:
+            raise RuntimeError("no LLM configured (llm_keys empty); use re_only=true for retrieval-only runs")
+        return await generation(llm, prompt)
+
+    # -- run ------------------------------------------------------------------
+
+    async def run(self, query: Dict[str, Any]) -> Dict[str, Any]:
+        """``{"query": ..., "document": optional dir}`` ->
+        ``{"answer", "nodes", "contexts"}``."""
+        _, self.filter_dict = self.build_filters(query)
+        self.sparse_retriever.filter_dict = self.filter_dict
+        return await self.generation_with_knowledge_retrieval(query_str=query["query"])
+
+    def _dual_retrieve(self, query_bundle: QueryBundle):
+        """Both routes scored together for one query; None when a route
+        overflows the resident term budget (the caller then retrieves per
+        route). The content route takes the dir filter, the path route does
+        not (``pipeline.py:357-365``)."""
+        if self._dual_scorer is None:
+            return None
+        sparse, path = self.sparse_retriever, self.path_retriever
+        sparse.filter_dict = self.filter_dict
+        tokens = sparse._tokenize_query(query_bundle.query_str)
+        dir_f = sparse._dir_filter_value()
+        try:
+            sparse._resident.query_terms(tokens)
+            path._resident.query_terms(tokens)
+        except ValueError:
+            return None
+        (tv1, ti1), (tv2, ti2) = self._dual_scorer.score_topk(
+            [tokens], sparse._similarity_top_k, path._similarity_top_k, [dir_f]
+        )
+
+        def to_nodes(tv, ti):
+            n = int((tv > float("-inf")).sum())
+            return [NodeWithScore(node=self.nodes[i], score=v) for v, i in zip(tv[:n].tolist(), ti[:n].tolist())]
+
+        return to_nodes(tv1[0], ti1[0]), to_nodes(tv2[0], ti2[0])
+
+    async def generation_with_knowledge_retrieval(self, query_str: str) -> Dict[str, Any]:
+        """Sparse dual route -> fusion -> rerank -> QA generation -> optional
+        answer refinement."""
+        query_bundle = QueryBundle(query_str=query_str)
+        with _timed("retrieval"):
+            routes = self._dual_retrieve(query_bundle)
+            if routes is None:
+                routes = (
+                    await self.sparse_retriever.aretrieve(query_bundle),
+                    await self.path_retriever.aretrieve(query_bundle) if self.path_retriever else [],
+                )
+            node_with_scores = HybridRetriever.fusion(list(routes))
+        if self.reranker:
+            emit("reranking", {"candidates": len(node_with_scores)})
+            with _timed("rerank"):
+                node_with_scores = self.reranker.postprocess_nodes(node_with_scores, query_bundle)
+        contents = [self.get_node_content(node) for node in node_with_scores]
+        if self.re_only:
+            return {"answer": "", "nodes": node_with_scores, "contexts": contents}
+        context_str = "\n\n".join(f"### 文档{i}: {c}" for i, c in enumerate(contents))
+        prompt = self.qa_template.format(context_str=context_str, query_str=query_str)
+        with _timed("generation"):
+            ret = await self.generation(self.llm, prompt)
+        if self.ans_refine_type == 1:
+            ret = await self.generation(
+                self.llm,
+                self.merge_template.format(context_str=contents[0], query_str=query_str, answer_str=ret.text),
+            )
+        elif self.ans_refine_type == 2:
+            ret.text = ret.text + "\n\n" + contents[0]
+        return {"answer": ret.text, "nodes": node_with_scores, "contexts": contents}

@@ -1,0 +1,223 @@
+"""The port's BM25 path against the JAX package's, on one seeded corpus.
+
+Tolerances: the sparse index arrays are equal to
+``build_sparse_index(..., use_native=False)``; scatter, resident, dual and
+overflow scoring give identical indices and scores within rtol 1e-6 (f32 sums
+in a different order). K5's JAX side runs with ``interpret=True``, as the JAX
+package's own tests run it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from easyrag_tpu.index.sparse import build_sparse_index as jax_build
+from easyrag_tpu.ops import bm25 as jbm25
+from easyrag_tpu.ops import bm25_resident as jres
+from easyrag_tpu.ops.bm25_pallas import bm25_scores_pallas
+from easyrag_tpu_torch.index.sparse import build_sparse_index
+from easyrag_tpu_torch.ops import bm25 as tbm25
+from easyrag_tpu_torch.ops import bm25_resident as tres
+from easyrag_tpu_torch.ops import bm25_scatter
+
+torch.set_num_threads(1)
+
+DIRS = ["director", "emsplus", "rcp", "umac"]
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(0)
+    zipf = 1.0 / np.arange(1, 301)
+    zipf /= zipf.sum()
+    docs = [[f"t{t}" for t in rng.choice(300, size=int(rng.integers(5, 60)), p=zipf)] for _ in range(80)]
+    docs[7] = list(docs[3])  # exact score ties between two docs
+    dirs = [DIRS[i % 4] for i in range(len(docs))]
+    queries = [list(rng.choice(docs[i], size=6)) + ["t7", "unknown"] for i in (1, 9, 33)]
+    queries.append(list(docs[3][:4]))
+    queries.append([])
+    return docs, dirs, queries
+
+
+def _indexes(corpus, bm25_type=0):
+    docs, dirs, _ = corpus
+    return jax_build(docs, bm25_type=bm25_type, dirs=dirs, use_native=False), build_sparse_index(
+        docs, bm25_type=bm25_type, dirs=dirs
+    )
+
+
+@pytest.mark.parametrize("bm25_type", [0, 1])
+def test_sparse_index_arrays_equal_reference_python_path(corpus, bm25_type):
+    ref, got = _indexes(corpus, bm25_type)
+    assert got.stats.vocab == ref.stats.vocab
+    assert got.stats.num_docs == ref.stats.num_docs and got.stats.avgdl == ref.stats.avgdl
+    for name in ("doc_lens", "term_offsets", "post_docs", "post_tfs"):
+        np.testing.assert_array_equal(getattr(got.stats, name), getattr(ref.stats, name))
+    np.testing.assert_array_equal(got.post_vals, ref.post_vals)
+    np.testing.assert_array_equal(got.dir_ids, ref.dir_ids)
+    assert got.dir_vocab == ref.dir_vocab
+    for q in corpus[2]:
+        assert got.query_term_ids(q) == ref.query_term_ids(q)
+        np.testing.assert_array_equal(got.get_scores_host(q), ref.get_scores_host(q))
+        for kw in ({"pad_to": 2048}, {"pad_to": 8, "bucket": True}):
+            for a, b in zip(got.gather_postings(got.query_term_ids(q), **kw),
+                            ref.gather_postings(ref.query_term_ids(q), **kw)):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_scatter_plain_matches_pallas_interpret(corpus):
+    ref_idx, idx = _indexes(corpus)
+    rows = [idx.gather_postings(idx.query_term_ids(q), pad_to=1024) for q in corpus[2]]
+    ids = np.stack([r[0] for r in rows])
+    vals = np.stack([r[1] for r in rows])
+    ref = np.asarray(bm25_scores_pallas(jnp.asarray(ids), jnp.asarray(vals), idx.num_docs, interpret=True))
+    got = bm25_scatter.bm25_scores(torch.from_numpy(ids), torch.from_numpy(vals), idx.num_docs).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+    single = bm25_scatter.bm25_scores(torch.from_numpy(ids[0]), torch.from_numpy(vals[0]), idx.num_docs)
+    np.testing.assert_array_equal(single.numpy(), got[0])
+    np.testing.assert_allclose(got[0], ref_idx.get_scores_host(corpus[2][0]), rtol=1e-6)
+
+
+def test_scatter_drops_out_of_range_ids():
+    ids = torch.tensor([0, 5, 4, -1, 6, 5], dtype=torch.int32)
+    vals = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0, 6.0])
+    got = bm25_scatter.bm25_scores(ids, vals, 5)
+    np.testing.assert_array_equal(got.numpy(), [1.0, 0, 0, 0, 3.0])
+    empty = bm25_scatter.bm25_scores(ids[None, :0], vals[None, :0], 5)
+    assert empty.shape == (1, 5) and (empty == 0).all()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("dir_f", [-1, -2, 1])
+def test_score_topk_matches_reference(corpus, use_pallas, dir_f):
+    ref_idx, idx = _indexes(corpus)
+    for q in corpus[2]:
+        ids, vals = idx.gather_postings(idx.query_term_ids(q), pad_to=2048, bucket=True)
+        rv, ri = jbm25.bm25_score_topk(
+            jnp.asarray(ids), jnp.asarray(vals), idx.num_docs, 20,
+            dir_col=jnp.asarray(ref_idx.dir_ids), dir_filter=jnp.int32(dir_f),
+        )
+        gv, gi = tbm25.bm25_score_topk(
+            torch.from_numpy(ids), torch.from_numpy(vals), idx.num_docs, 20,
+            dir_col=torch.from_numpy(idx.dir_ids), dir_filter=torch.tensor(dir_f, dtype=torch.int32),
+            use_pallas=use_pallas,
+        )
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+        np.testing.assert_allclose(gv.numpy(), np.asarray(rv), rtol=1e-6)
+
+
+def _residents(corpus, light_rows, light_cap=4):
+    ref_idx, idx = _indexes(corpus)
+    kw = dict(light_cap=light_cap, max_query_terms=16, light_rows=light_rows)
+    return jres.ResidentSparseIndex(ref_idx, **kw), tres.ResidentSparseIndex(idx, **kw)
+
+
+@pytest.mark.parametrize("light_rows", [True, False])
+@pytest.mark.parametrize("heavy_form", ["gather", "matmul"])
+def test_resident_matches_reference(corpus, light_rows, heavy_form):
+    ref, got = _residents(corpus, light_rows)
+    assert got.light_layout == ref.light_layout
+    queries = corpus[2]
+    rid, rcnt = ref.query_terms_batch(queries)
+    gid, gcnt = got.query_terms_batch(queries)
+    np.testing.assert_array_equal(gid, rid)
+    np.testing.assert_array_equal(gcnt, rcnt)
+    dir_f = np.array([-1, 0, -2, 3, -1], np.int32)
+    rv, ri = jres._resident_score_topk(
+        ref.heavy, ref.t_heavy_row, ref.t_starts, ref.t_light_lens, ref.post_docs, ref.post_vals,
+        ref.dir_col, jnp.asarray(rid), jnp.asarray(rcnt), jnp.asarray(dir_f),
+        k=24, num_docs=ref.num_docs, light_cap=ref.light_cap, P=ref.P,
+        light=ref.light_layout, heavy_form=heavy_form,
+    )
+    gv, gi = got._score_topk(
+        torch.from_numpy(gid), torch.from_numpy(gcnt), 24, torch.from_numpy(dir_f),
+        light_t=got.light_t_bound(gid), heavy_form=heavy_form,
+    )
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(rv), rtol=1e-6)
+
+
+def test_resident_score_topk_and_stream_match_host_oracle(corpus):
+    _, got = _residents(corpus, True)
+    idx = got.host_index
+    queries = corpus[2]
+    dirs = [None, "umac", "nowhere", None, "rcp"]
+    tv, ti = got.score_topk(queries, 12, dir_values=dirs)
+    sv, si = got.stream_score_topk(queries, 12, batch=2, dir_values=dirs)
+    np.testing.assert_array_equal(si, ti)
+    np.testing.assert_array_equal(sv, tv)
+    for q, d, vals, inds in zip(queries, dirs, tv, ti):
+        host = idx.get_scores_host(q)
+        if d is not None:
+            host = np.where(np.asarray(corpus[1]) == d, host, 0.0)
+        order = host.argsort(kind="stable")[::-1]
+        order = order[host[order] > 0][:12]
+        n = int(np.isfinite(vals).sum())
+        np.testing.assert_array_equal(inds[:n], order)
+        assert (inds[n:] == idx.num_docs).all()
+        np.testing.assert_allclose(vals[:n], host[order], rtol=1e-6)
+
+
+def test_dual_scorer_matches_reference(corpus):
+    docs, dirs, queries = corpus
+    paths = [[f"p{i % 5}", f"p{i % 3}x"] for i in range(len(docs))]
+    ref_c, got_c = _residents(corpus, True)
+    ref_p = jres.ResidentSparseIndex(jax_build(paths, dirs=dirs, use_native=False), light_cap=4, max_query_terms=16)
+    got_p = tres.ResidentSparseIndex(build_sparse_index(paths, dirs=dirs), light_cap=4, max_query_terms=16)
+    qs = [q + ["p1", "p2x"] for q in queries]
+    dir_fs = [-1, 2, -2, -1, 0]
+    (rv1, ri1), (rv2, ri2) = jres.DualResidentScorer(ref_c, ref_p).score_topk(qs, 10, 3, dir_fs)
+    dual = tres.DualResidentScorer(got_c, got_p)
+    (gv1, gi1), (gv2, gi2) = dual.score_topk(qs, 10, 3, dir_fs)
+    np.testing.assert_array_equal(gi1, ri1)
+    np.testing.assert_array_equal(gi2, ri2)
+    np.testing.assert_allclose(gv1, rv1, rtol=1e-6)
+    np.testing.assert_allclose(gv2, rv2, rtol=1e-6)
+    (sv1, si1), (sv2, si2) = dual.stream_score_topk(qs, 10, 3, dir_fs, batch=2)
+    np.testing.assert_array_equal(si1, gi1)
+    np.testing.assert_array_equal(si2, gi2)
+
+
+def test_resident_auto_cap_and_limits(corpus):
+    _, idx = _indexes(corpus)
+    lens = np.diff(idx.stats.term_offsets)
+    r = tres.ResidentSparseIndex(idx, heavy_hbm_budget=1 << 30)
+    assert r.light_cap == 8  # the smallest cap fits a generous budget
+    tight = int((lens > 32).sum()) * idx.num_docs * 4
+    assert tres.auto_light_cap(lens, idx.num_docs, 4, tight) == 32
+    assert tres.auto_light_cap(lens, idx.num_docs, 4, 0) == idx.num_docs
+    with pytest.raises(ValueError):
+        tres.ResidentSparseIndex(idx, max_query_terms=2).query_terms(["t1", "t2", "t3"])
+    for kw in ({"heavy_dtype": "bfloat16"}, {"heavy_dtype": "int8"}, {"tail": "pallas"}):
+        with pytest.raises(NotImplementedError):
+            tres.ResidentSparseIndex(idx, **kw)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+def test_scatter_kernel_matches_plain_on_card(cuda, B):
+    rng = np.random.default_rng(B)
+    N, P = 3000, 5000
+    ids = rng.integers(-2, N + 3, size=(B, P)).astype(np.int32)  # out-of-range ids too
+    vals = rng.random((B, P)).astype(np.float32)
+    ids_t, vals_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(vals).to(cuda)
+    before = bm25_scatter.launches
+    got = bm25_scatter.bm25_scores(ids_t, vals_t, N)
+    again = bm25_scatter.bm25_scores(ids_t, vals_t, N)
+    torch.cuda.synchronize()
+    assert bm25_scatter.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    ref = bm25_scatter.bm25_scores_plain(torch.from_numpy(ids), torch.from_numpy(vals), N)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
+    empty = bm25_scatter.bm25_scores(ids_t[:, :0].contiguous(), vals_t[:, :0].contiguous(), N)
+    torch.cuda.synchronize()
+    assert empty.shape == (B, N) and (empty == 0).all()

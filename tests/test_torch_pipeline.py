@@ -1,0 +1,200 @@
+"""The port's default RAG path end to end against the JAX package's.
+
+One small corpus, one tiny MiniCPM reranker (one JAX parameter tree, given
+to the port through ``minicpm_from_jax``) and a recording stub LLM: both
+``EasyRAGPipeline.run`` implementations must return the same nodes (corpus
+positions and texts), the same contexts, reranker scores within atol 1e-4,
+and send the same QA prompt. The queries cover the dual route, the dir filter
+and a query past the resident term budget (the overflow gather path, K5's
+plain version here). A subprocess with ``jax`` blocked runs the port alone.
+"""
+
+import asyncio
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from easyrag_tpu.config import EasyRAGConfig, TPUConfig
+from easyrag_tpu.corpus import tokenizer as tokmod
+from easyrag_tpu.generation import CompletionResponse
+from easyrag_tpu.models.minicpm import MiniCPMLayerWiseReranker as JaxReranker
+from easyrag_tpu.pipeline import EasyRAGPipeline as JaxPipeline
+from easyrag_tpu.rerankers import LLMRerank
+from easyrag_tpu.schema import QueryBundle
+from easyrag_tpu_torch.models.convert import minicpm_from_jax
+from easyrag_tpu_torch.models.layers import DecoderConfig
+from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+from test_torch_minicpm import ARCH, CharTok, tiny_params
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+DOCS = {
+    "director/scale.txt": (["运维", "扩容"], "CDU虚机扩容指南\nCDU虚机每次扩容的最大SC个数为15，步长为3。扩容前需检查资源池容量。\n\n\n"
+                           "GSU虚机每次扩容的最大SC个数为5，步长为1。扩容需在维护窗口执行。\n"),
+    "director/backup.txt": (["运维", "备份"], "数据备份说明\n系统支持全量备份和增量备份，备份文件存储在共享存储上。\n"),
+    "director/alarm.txt": (["运维", "告警"], "告警处理\n资源池容量不足时系统产生告警，需扩容或清理资源。\n"),
+    "umac/auth.txt": (["安全", "鉴权"], "鉴权配置\n用户鉴权失败时需要检查LDAP服务器连接，鉴权日志位于日志目录。\n"),
+    "umac/log.txt": (["安全", "日志"], "日志说明\n日志目录保存鉴权日志和操作日志，日志按天滚动。\n"),
+    "rcp/net.txt": (["网络", "配置"], "网络配置\n虚机网络配置需要检查交换机端口和VLAN，扩容后需重新配置网络。\n"),
+}
+QUERIES = [
+    {"query": "CDU虚机扩容的最大SC个数是多少？"},
+    {"query": "鉴权失败如何处理？", "document": "umac"},
+    {"query": "扩容 备份 鉴权 日志 网络 告警 资源池 容量 交换机 端口 维护 窗口 存储"},  # > 8 terms
+]
+
+
+def make_corpus(root):
+    for rel, (path, text) in DOCS.items():
+        os.makedirs(os.path.join(root, os.path.dirname(rel)), exist_ok=True)
+        with open(os.path.join(root, rel), "w", encoding="utf-8") as f:
+            f.write(text)
+    with open(os.path.join(root, "pathmap.json"), "w", encoding="utf-8") as f:
+        json.dump({rel: path for rel, (path, _) in DOCS.items()}, f)
+    return str(root)
+
+
+class RecordingLLM:
+    def __init__(self):
+        self.prompts = []
+
+    async def acomplete(self, prompt):
+        self.prompts.append(prompt)
+        return CompletionResponse(text=f"answer-{len(self.prompts)}")
+
+
+@pytest.fixture
+def offline_counter(monkeypatch):
+    # the splitter's default counter would try to fetch a tiktoken table;
+    # both pipelines chunk with the offline approximation instead
+    monkeypatch.setattr(tokmod, "_counter", tokmod.approx_token_count)
+    monkeypatch.setattr(tokmod, "_counter_name", "approx")
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_run_matches_jax_pipeline(tmp_path, offline_counter, side):
+    data_path = make_corpus(tmp_path / "corpus")
+    cfg = EasyRAGConfig(
+        data_path=data_path, chunk_size=64, chunk_overlap=10, f_topk_2=8, f_topk_3=2,
+        r_topk=3, r_embed_bs=4,
+        tpu=TPUConfig(use_pallas=False, max_query_terms=8, max_query_postings=2048),
+    )
+    jcfg, params, params_np = tiny_params()
+    opts = dict(start_layer=1, cutoff_layer=3, max_length=64)
+    jax_llm, port_llm = RecordingLLM(), RecordingLLM()
+    ref = JaxPipeline(
+        cfg, llm=jax_llm,
+        reranker=LLMRerank(JaxReranker(jcfg, params, CharTok(side), **opts), top_n=3, embed_bs=4, embed_type=1),
+    )
+    scorer = minicpm_from_jax(DecoderConfig(**ARCH), params_np, "cpu", torch.float32, CharTok(side), **opts)
+    port_cfg = dataclasses.replace(cfg, tpu=TPUConfig(max_query_terms=8, max_query_postings=2048))
+    got = EasyRAGPipeline(
+        port_cfg, llm=port_llm, reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1)
+    )
+    assert got.config.tpu.use_pallas  # the overflow query goes through K5's wrapper
+    assert [n.text for n in got.nodes] == [n.text for n in ref.nodes]
+    for q in QUERIES:
+        a = asyncio.run(ref.run(dict(q)))
+        b = asyncio.run(got.run(dict(q)))
+        assert [n.node.idx for n in b["nodes"]] == [n.node.idx for n in a["nodes"]]
+        assert [n.node.text for n in b["nodes"]] == [n.node.text for n in a["nodes"]]
+        assert b["contexts"] == a["contexts"]
+        np.testing.assert_allclose([n.score for n in b["nodes"]], [n.score for n in a["nodes"]], atol=1e-4, rtol=0)
+        assert b["answer"] == a["answer"]
+    assert port_llm.prompts == jax_llm.prompts
+    # the long query overflowed the resident term budget into the gather path
+    assert got._dual_retrieve(QueryBundle(query_str=QUERIES[2]["query"])) is None
+
+
+def test_unported_options_raise(tmp_path, offline_counter):
+    data_path = make_corpus(tmp_path / "corpus")
+    for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1}, {"split_type": 1}, {"hyde": True},
+               {"index_artifact_path": str(tmp_path / "a")}, {"use_reranker": 2}):
+        with pytest.raises(NotImplementedError):
+            EasyRAGPipeline(EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}))
+
+
+BLOCKED_JAX_SCRIPT = textwrap.dedent(
+    """
+    import asyncio, json, os, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.path.insert(0, {repo!r})
+    import torch
+    import chip_smoke  # noqa: F401  (importing the smoke script loads nothing of JAX)
+    from easyrag_tpu.config import EasyRAGConfig
+    from easyrag_tpu.corpus.splitter import SentenceSplitter
+    from easyrag_tpu.corpus.tokenizer import approx_token_count
+    from easyrag_tpu.rerankers import LLMRerank
+    from easyrag_tpu_torch.models.layers import DecoderConfig
+    from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
+    from easyrag_tpu.generation import CompletionResponse
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+
+    DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
+    root = {tmp!r}
+    for rel, (path, text) in DOCS.items():
+        os.makedirs(os.path.join(root, os.path.dirname(rel)), exist_ok=True)
+        with open(os.path.join(root, rel), "w", encoding="utf-8") as f:
+            f.write(text)
+    with open(os.path.join(root, "pathmap.json"), "w", encoding="utf-8") as f:
+        json.dump({{rel: path for rel, (path, _) in DOCS.items()}}, f)
+
+    class StubLLM:
+        async def acomplete(self, prompt):
+            return CompletionResponse(text="answer")
+
+    class CharCut:  # one token per character: no jieba needed
+        def cut(self, text):
+            return list(text)
+
+    ARCH = dict(vocab_size=96, hidden_size=128, intermediate_size=256, num_hidden_layers=4,
+                num_attention_heads=2, num_key_value_heads=2, scale_emb=12.0, scale_depth=1.4,
+                dim_model_base=64.0)
+
+    class Tok:
+        bos_token_id, pad_token_id, padding_side = 1, 0, "right"
+        def __call__(self, text, add_special_tokens=False, max_length=None, truncation=False):
+            ids = [ord(c) % 94 + 2 for c in text]
+            return {{"input_ids": ids[:max_length] if truncation and max_length else ids}}
+
+    scorer = MiniCPMLayerWiseReranker(DecoderConfig(**ARCH), Tok(), start_layer=1, cutoff_layer=3,
+                                      max_length=64, dtype=torch.float32)
+    scorer.init_random_(torch.Generator().manual_seed(0))
+    pipe = EasyRAGPipeline(
+        EasyRAGConfig(data_path=root, chunk_size=64, chunk_overlap=10, f_topk_2=8, f_topk_3=2),
+        llm=StubLLM(), reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1),
+        sparse_tokenizer=CharCut(),
+        splitter=SentenceSplitter(64, 10, token_counter=approx_token_count, sentence_splitter=lambda t: [t]),
+    )
+    out = [asyncio.run(pipe.run(dict(q))) for q in QUERIES]
+    loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib"))
+    print(json.dumps({{"contexts": [len(o["contexts"]) for o in out], "answers": [o["answer"] for o in out],
+                      "jax_modules": loaded}}))
+    """
+)
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    script = BLOCKED_JAX_SCRIPT.format(
+        repo=REPO, tmp=str(tmp_path / "corpus"),
+        docs=json.dumps(DOCS, ensure_ascii=False), queries=json.dumps(QUERIES, ensure_ascii=False),
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["jax_modules"] == []
+    assert result["answers"] == ["answer"] * len(QUERIES)
+    assert all(0 < n <= 3 for n in result["contexts"])
