@@ -7,11 +7,19 @@ Phases (each one raises on failure; nothing falls back to the CPU):
 
 0. environment: Python/torch/CUDA versions, the card's ``nvidia-smi`` name
    and power limit, ``nvcc``, and which of yaml/jieba/transformers import;
-1. build both CUDA kernels from ``easyrag_tpu_torch/csrc`` with ``nvcc``;
+1. build the four CUDA kernels from ``easyrag_tpu_torch/csrc``, one ``nvcc``
+   per source, all started together; print each one's registers and spills;
 2. each kernel against its plain PyTorch version on the card: K1
    (``flash64_attention``) at B=4, S=1064, H=36 with and without RoPE on
    both padding sides, K5 (``bm25_scores``) at P=32768, N=20000 for B=1
-   and B=4; max error and median times from CUDA events;
+   and B=4, K2 (``int4_matvec``) on the five Qwen2-7B int4 shapes at R=1, 4,
+   8 and 32 (rows of the R=32 launch must equal the smaller launches bit for
+   bit; times from CUDA graphs of at least 50 launches that cycle through
+   copies of the weights four times the size of the L2, as a decode step
+   reads every layer's weights from HBM),
+   K3 (``flash_attention``) at B=1, S=7680 and at B=4, S=2048 left-padded,
+   28 query heads on 4 KV heads; max error and median times from CUDA
+   events;
 3. the port's ``EasyRAGPipeline.run`` on ``configs/easyrag.yaml`` over a
    seeded synthetic corpus of 20,000 chunks, with the full-width
    bge-reranker-v2-minicpm-layerwise (hidden 2304, 36x64 heads, 40 layers,
@@ -22,10 +30,23 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    before the three runs and read just after; K1 must run on every query
    and K5 on the long one. The content route's top-192 must equal the
    float64 host ranking (ties aside) and the reranker must agree with an f32
-   CPU run of its first 8 layers on a small input;
-4. both kernels against their plain versions at the pipeline's own shapes.
+   CPU run of its first 8 layers on a small input. The long query's overflow
+   scatter, run twice with ``use_pallas`` off, must go through K5 and give
+   the same bits;
+4. K1 and K5 against their plain versions at the pipeline's own shapes;
+5. the on-device answer generator: Qwen2-7B-Instruct at full width and
+   depth (random bf16 weights from a seeded ``torch.Generator``, quantized by
+   the port into the ``local_llm_quant: int4`` layout, fused), with
+   ``max_new_tokens`` 128, ``spec_tokens`` 7 and ``max_batch`` 4, answers
+   phase 3's three queries through the same pipeline, its LLM the shared
+   ``BatchingLocalLLM``. Kernel launch counts are reset just before the three
+   runs and read just after; K2 and K3 must run on every answer. Then the
+   three prompts in one batched dispatch, the share of its tokens equal to
+   plain greedy decoding, a 2-layer cut of the same tree on the card against
+   the CPU in f32, and the peak device memory.
 
-Prints one JSON line of kernel results, the ``nvidia-smi`` line, and last
+Prints its total seconds, one JSON line of kernel results (K2's times are
+gateup's at R=1, K3's at B=1, S=7680), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -34,6 +55,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -53,6 +75,28 @@ MAX_LENGTH = 1024
 K1_ROW_RTOL = 1.6e-2
 K5_RTOL = 1e-6
 RERANK_REL_TOL = 5e-2  # bf16 card vs f32 CPU, 8 layers, relative L2 of the score vector
+GEN_REL_TOL = 5e-2  # bf16 card vs f32 CPU, 2 generator layers, relative L2 of the last-position logits
+# K3 vs plain, per 128-wide head row: K1's rule (the same rounding of the
+# unnormalised probabilities)
+K3_ROW_RTOL = 1.6e-2
+# K2 vs plain, per output: |k - p| <= K2_RTOL * |p| + K2_ROW_ATOL * max|p row|.
+# The kernel and the plain version take f32 sums of the same exact products
+# in other orders, then round once to bf16: one bf16 rounding of the output
+# (2^-8 of it, doubled for the two roundings of nearly equal sums) plus
+# f32-order slack relative to the row's scale.
+K2_RTOL = 2.0 ** -7
+K2_ROW_ATOL = 1e-4
+QWEN2_7B = dict(  # Qwen2-7B-Instruct's config.json
+    vocab_size=152_064, hidden_size=3584, intermediate_size=18_944, num_hidden_layers=28,
+    num_attention_heads=28, num_key_value_heads=4, rope_theta=1e6, rms_norm_eps=1e-6, attention_bias=True,
+)
+QWEN2_EOS = [151_643, 151_645]  # <|endoftext|>, <|im_end|> (generation_config.json)
+# K2 times cycle through copies of the weights totalling 4x the H100's 50 MB L2
+L2_FLUSH_BYTES = 200 << 20
+K2_SHAPES = {  # [O, I/2] of the int4 matvecs of a Qwen2-7B decode step, fused as the generator runs them
+    "qkv": (4608, 1792), "o": (3584, 1792), "gateup": (37_888, 1792), "down": (3584, 9472), "lm_head": (152_064, 1792),
+}
+GEN_MAX_NEW, GEN_SPEC, GEN_BATCH = 128, 7, 4  # configs/four_tenant.yaml's local_llm_max_new/_spec/_gen_batch
 RERANKER = dict(
     vocab_size=122_753, hidden_size=2304, intermediate_size=5760, num_hidden_layers=40,
     num_attention_heads=36, num_key_value_heads=36, scale_emb=12.0, scale_depth=1.4,
@@ -92,6 +136,32 @@ def cuda_ms(torch, fn, reps=10, warmup=2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(torch, fn, n=50) -> float:
+    """Milliseconds per call of ``fn``, from CUDA events around the replay
+    of a CUDA graph of ``n`` calls: device time without the host's launch
+    gaps, which a per-call event pair counts for kernels of a few
+    microseconds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -170,16 +240,20 @@ def phase_env(torch):
     return smi
 
 
+KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention")
+
+
 def phase_build():
     say("== phase 1: kernel build")
     from easyrag_tpu_torch import _build
 
     t0 = time.perf_counter()
-    for name in ("flash64", "bm25_scatter"):
-        _build.load(name)
-        usage = [ln.strip() for ln in _build.build_logs.get(name, "").splitlines() if "registers" in ln]
-        say(f"{name}: {usage[0] if usage else 'loaded from the build cache'}")
-    say(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    _build.build(KERNELS)
+    say(f"kernel build: {time.perf_counter() - t0:.2f} s (four nvcc processes at once)")
+    for name in KERNELS:
+        log = _build.build_logs.get(name, "").splitlines()
+        usage = [ln.split("info    :")[-1].strip() for ln in log if "registers" in ln or "spill" in ln]
+        say(f"{name}: {'; '.join(usage) if usage else 'loaded from the build cache'}")
 
 
 def k1_case(torch, B, S, H, gen, rope, side, n_real):
@@ -235,6 +309,93 @@ def k5_compare(torch, k5, args):
     err = float((got - ref).abs().max())
     check(bool(((got - ref).abs() <= K5_RTOL * ref.abs() + 1e-6).all()), f"K5 disagrees with its plain version (max abs {err})")
     return err
+
+
+def k2_case(torch, gen, n_out, half, rows):
+    dev = torch.device("cuda")
+    w = torch.randint(-128, 128, (n_out, half), generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(n_out, generator=gen, device=dev) * 2e-3 + 1e-4
+    x = torch.randn(rows, 2 * half, generator=gen, device=dev).to(torch.bfloat16)
+    return x, w, scale
+
+
+def k2_compare(torch, k2, x, w, scale):
+    got = k2.int4_matvec(x, w, scale)
+    ref = k2.int4_matvec_plain(x, w, scale).float()
+    torch.cuda.synchronize()
+    diff = (got.float() - ref).abs()
+    bound = K2_RTOL * ref.abs() + K2_ROW_ATOL * ref.abs().amax(dim=1, keepdim=True)
+    ratio = float((diff / bound).max())
+    check(bool(torch.isfinite(got.float()).all()) and ratio <= 1.0,
+          f"K2 disagrees with its plain version (max abs {float(diff.max())}, {ratio:.3f} of the bound)")
+    return got, float(diff.max()), ratio
+
+
+def k3_case(torch, gen, B, S, lengths):
+    dev = torch.device("cuda")
+    q = torch.randn(B, S, 28 * 128, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, 4 * 128, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    kv_s = torch.tensor([S - n for n in lengths], dtype=torch.int32, device=dev)
+    kv_e = torch.full((B,), S, dtype=torch.int32, device=dev)
+    return (q, k, v, kv_s, kv_e, 128 ** -0.5, 4)
+
+
+def k3_compare(torch, k3, args):
+    got = k3.flash_attention(*args)
+    ref = k3.flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), "K3 output has non-finite values (pad rows included)")
+    q, _, _, kv_s = args[:4]
+    real = torch.arange(q.shape[1], device=q.device)[None, :] >= kv_s[:, None]
+    g, r = (t.float()[real].reshape(-1, 128) for t in (got, ref))
+    diff = (g - r).abs()
+    bound = r.abs().amax(dim=1, keepdim=True)
+    row_rel = float((diff / bound.clamp_min(1e-30)).max())
+    check(bool((diff <= K3_ROW_RTOL * bound).all()), f"K3 disagrees with its plain version ({row_rel:.3e} of the row)")
+    return float(diff.max()), row_rel
+
+
+def cold_weights(w, scale):
+    """Calls that cycle through enough copies of ``(w, scale)`` to read
+    ``L2_FLUSH_BYTES`` between two uses of one copy: in a decode step every
+    layer's weights are distinct and come from HBM, not from a warm L2."""
+    copies = [(w.clone(), scale.clone()) for _ in range(-(-L2_FLUSH_BYTES // w.nbytes))]
+    return itertools.cycle(copies), len(copies)
+
+
+def phase_new_kernels(torch, k2, k3):
+    """K2 and K3 against their plain versions at the generator's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    errs, times = {"K2": 0.0, "K3": 0.0}, {}
+    for name, (n_out, half) in K2_SHAPES.items():
+        x32, w, scale = k2_case(torch, gen, n_out, half, 32)
+        cold, n_copies = cold_weights(w, scale)
+        by_rows = {}
+        for rows in (1, 4, 8, 32):  # decode at B=1 and B=4, verify blocks (spec 7) at B=1 and B=4
+            x = x32[:rows].contiguous()
+            got, err, ratio = k2_compare(torch, k2, x, w, scale)
+            by_rows[rows] = got
+            errs["K2"] = max(errs["K2"], err)
+            ms = graph_ms(torch, lambda: k2.int4_matvec(x, *next(cold)), n=max(50, n_copies))
+            plain = graph_ms(torch, lambda: k2.int4_matvec_plain(x, *next(cold)), n=10)
+            times[(name, rows)] = (ms, plain)
+            gbs = n_out * half / ms / 1e6
+            say(f"K2 {name} [{n_out}, {half}] R={rows}: max_abs_err {err:.3e} ({ratio:.3f} of the bound); "
+                f"kernel {ms:.4f} ms ({gbs:.0f} GB/s of packed weights), plain {plain:.4f} ms")
+        same = all(torch.equal(by_rows[32][:r], by_rows[r]) for r in (1, 4, 8))
+        check(same, f"K2 {name}: rows of the R=32 launch differ from the R=1, 4 and 8 launches")
+        say(f"K2 {name}: the first rows of the R=32 launch equal the R=1, 4 and 8 launches bit for bit")
+    for B, S, lengths in ((1, 7680, [7680]), (4, 2048, [2048, 1500, 700, 40])):
+        args = k3_case(torch, gen, B, S, lengths)
+        err, row_rel = k3_compare(torch, k3, args)
+        errs["K3"] = max(errs["K3"], err)
+        ms = cuda_ms(torch, lambda: k3.flash_attention(*args), reps=5)
+        plain = cuda_ms(torch, lambda: k3.flash_attention_plain(*args), reps=3, warmup=1)
+        times[("K3", B, S)] = (ms, plain)
+        flop = sum(4 * 28 * 128 * n * (n + 1) / 2 for n in lengths)  # causal QK^T + PV over real rows
+        say(f"K3 B={B} S={S} lengths {lengths}: max_abs_err {err:.3e} (row-relative {row_rel:.3e}), all finite; "
+            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms")
+    return errs, times
 
 
 def phase_kernels(torch, f64, k5):
@@ -421,14 +582,25 @@ def phase_pipeline(torch, np, f64, k5, tmp):
     say(f"reranker at cutoff 8, card bf16 vs CPU f32: {card_scores.tolist()} vs {cpu_scores.tolist()} (rel {rel:.3e})")
     check(np.isfinite(card_scores).all() and rel <= RERANK_REL_TOL, "reranker disagrees with the CPU reference")
 
+    # the overflow scatter with use_pallas off: K5 on CUDA, the same bits twice
+    sr = pipeline.sparse_retriever
+    long_tokens = sr._tokenize_query(queries[2][1]["query"])
+    sr.use_pallas = False
+    k5_0 = k5.launches
+    (v1, i1), (v2, i2) = sr._device_topk(long_tokens, -1), sr._device_topk(long_tokens, -1)
+    sr.use_pallas = cfg.tpu.use_pallas
+    check(k5.launches - k5_0 == 2, "the use_pallas=False overflow scatter did not launch K5")
+    check(np.array_equal(v1.view(np.uint32), v2.view(np.uint32)) and np.array_equal(i1, i2),
+          "the use_pallas=False overflow scatter differs between two runs")
+    say(f"long query, use_pallas off: K5 launched twice, top-{int(np.isfinite(v1).sum())} identical bits in both runs")
+
     # shapes of the main path, for phase 4
     cand = pipeline.sparse_retriever.retrieve(QueryBundle(query_str=queries[0][1]["query"]))[:32]
     batch = [(queries[0][1]["query"], n.node.text) for n in cand]
     ids, mask = scorer.build_inputs(batch)
-    long_tokens = pipeline.sparse_retriever._tokenize_query(queries[2][1]["query"])
     idx = pipeline.sparse_retriever.index
     long_ids, _ = idx.gather_postings(idx.query_term_ids(long_tokens), pad_to=cfg.tpu.max_query_postings, bucket=True)
-    return launches, mask, len(long_ids)
+    return pipeline, queries, launches, mask, len(long_ids)
 
 
 def phase_main_shapes(torch, f64, k5, mask, P):
@@ -454,6 +626,222 @@ def phase_main_shapes(torch, f64, k5, mask, P):
     return timings
 
 
+class QwenCharTokenizer:
+    """One token per character (no checkpoint vocabulary is in the
+    repository) on ids below Qwen2's special tokens, and Qwen2's chat
+    template with its ``<|im_start|>``/``<|im_end|>`` ids. Decoding maps each
+    id to one character, so decoded texts compare token by token."""
+
+    N_PLAIN = 151_643  # the first special id, <|endoftext|>
+    IM_START, IM_END = 151_644, 151_645
+    pad_token_id = 151_643
+
+    def _ids(self, text):
+        return [ord(c) % self.N_PLAIN for c in text]
+
+    def apply_chat_template(self, messages, add_generation_prompt=True):
+        ids = []
+        for m in messages:
+            ids += [self.IM_START] + self._ids(f"{m['role']}\n{m['content']}") + [self.IM_END] + self._ids("\n")
+        if add_generation_prompt:
+            ids += [self.IM_START] + self._ids("assistant\n")
+        return ids
+
+    def decode(self, toks, skip_special_tokens=True):
+        # ids at and past the surrogate block shift past it: every id stays one character
+        return "".join(chr(t if t < 0xD800 else t + 0x800) for t in toks
+                       if not (skip_special_tokens and t >= self.N_PLAIN))
+
+
+class RecordingModel:
+    """Passes ``generate_batch`` through to the generator and keeps the prompts."""
+
+    def __init__(self, model) -> None:
+        self.model = model
+        self.prompts = []
+
+    def generate_batch(self, prompts):
+        self.prompts += list(prompts)
+        return self.model.generate_batch(prompts)
+
+
+def build_generator(torch, seed):
+    """Qwen2-7B-Instruct at full width and depth on the card: random bf16
+    weights (std 0.02, norms 1) from a seeded generator, quantized layer by
+    layer into the ``local_llm_quant: int4`` layout (int4 projections and
+    head, int8 embedding table, QKV biases in bf16), then fused."""
+    from easyrag_tpu_torch.models.layers import DecoderConfig
+    from easyrag_tpu_torch.models.quant import fuse_decode_tree, quantize_linear_int4, quantize_linear_int8
+
+    cfg = DecoderConfig(**QWEN2_7B)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, inter, hd = cfg.hidden_size, cfg.intermediate_size, cfg.hd
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+
+    def ones():
+        return torch.ones(d, device=dev, dtype=torch.bfloat16)
+
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        attn = {n: {**quantize_linear_int4(rnd(out, d)), "b": rnd(out)}
+                for n, out in (("q", nh * hd), ("k", nkv * hd), ("v", nkv * hd))}
+        attn["o"] = quantize_linear_int4(rnd(d, nh * hd))
+        mlp = {"gate": quantize_linear_int4(rnd(inter, d)), "up": quantize_linear_int4(rnd(inter, d)),
+               "down": quantize_linear_int4(rnd(d, inter))}
+        layers.append({"input_norm": ones(), "attn": attn, "mlp": mlp, "post_norm": ones()})
+    params = {"embed": quantize_linear_int8(rnd(cfg.vocab_size, d)), "layers": layers, "final_norm": ones(),
+              "lm_head": quantize_linear_int4(rnd(cfg.vocab_size, d))}
+    return cfg, fuse_decode_tree(params)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def generator_vs_cpu(torch, np, cfg, params):
+    """A 2-layer cut of the card's int4 tree (the same packed bytes) in bf16
+    on the card against the same cut in f32 on the CPU: last-position logits
+    of a left-padded batch of 2 in the 256 bucket."""
+    from easyrag_tpu_torch.models import decode as td
+
+    cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
+    cut = {**params, "layers": params["layers"][:2]}
+
+    def to_cpu(t, key=""):
+        if isinstance(t, dict):
+            return {k: to_cpu(v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.cpu() if key in ("w_q", "w_p", "scale") else t.float().cpu()
+
+    rng = np.random.default_rng(SEED + 5)
+    S, lengths = 256, [200, 37]
+    ids = np.zeros((2, S), np.int32)
+    mask = np.zeros((2, S), np.int32)
+    for b, n in enumerate(lengths):
+        ids[b, S - n:] = rng.integers(0, 151_643, size=n)
+        mask[b, S - n:] = 1
+    out = {}
+    for name, tree in (("card", cut), ("cpu", to_cpu(cut))):
+        dev = tree["final_norm"].device
+        cache = td.init_cache(cut_cfg, 2, S, tree["final_norm"].dtype, dev)
+        with torch.inference_mode():
+            h = td._prefill(cut_cfg, tree, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), cache)
+            out[name] = td._lm_logits(cut_cfg, tree, h).float().cpu().numpy()
+    card, cpu = out["card"], out["cpu"]
+    rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+    top_same = int((card.argmax(-1) == cpu.argmax(-1)).sum())
+    say(f"generator, 2 layers, card bf16 vs CPU f32: last-position logits rel L2 {rel:.3e}, "
+        f"argmax equal on {top_same}/2 rows")
+    check(np.isfinite(card).all() and rel <= GEN_REL_TOL, "the generator disagrees with the CPU reference")
+    return rel
+
+
+def phase_generator(torch, np, pipeline, queries, k1, k2, k3, k5):
+    say("== phase 5: the on-device answer generator (Qwen2-7B-Instruct, int4, spec 7) in the pipeline")
+    from easyrag_tpu.generation import BatchingLocalLLM
+    from easyrag_tpu.utils import events
+    from easyrag_tpu_torch.models.decode import TorchCausalLM
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = build_generator(torch, SEED + 3)
+    torch.cuda.synchronize()
+    attn0, mlp0 = params["layers"][0]["attn"], params["layers"][0]["mlp"]
+    check("qkv" in attn0 and "gateup" in mlp0, "fuse_decode_tree did not fuse the 7B layers")
+    say(f"generator: {tree_bytes(params) / 2**30:.3f} GiB on the card (int4 layers and head, int8 embedding), "
+        f"built in {time.perf_counter() - t0:.1f} s; layer 0 linears {sorted(attn0)} {sorted(mlp0)}")
+    model = TorchCausalLM.from_params(cfg, params, QwenCharTokenizer(), QWEN2_EOS, max_new_tokens=GEN_MAX_NEW,
+                                      max_batch=GEN_BATCH, spec_tokens=GEN_SPEC)
+    recorder = RecordingModel(model)
+    pipeline.llm = BatchingLocalLLM(recorder, window_ms=pipeline.config.serve_window_ms, max_batch=GEN_BATCH)
+    t0 = time.perf_counter()
+    model.warmup(pairs=[(7680, 1)])  # one prefill and verify block at the flagship bucket, not counted
+    torch.cuda.synchronize()
+    say(f"warmup (7680, B=1): {time.perf_counter() - t0:.1f} s")
+
+    stages = []
+    unsubscribe = events.on(lambda kind, p: stages.append((p["name"], p["seconds"] * 1e3)) if kind == "timing" else None)
+    results = []
+    for mod in (k1, k2, k3, k5):
+        mod.launches = 0
+    for name, q, _ in queries:
+        before = (k2.launches, k3.launches)
+        t = time.perf_counter()
+        out = asyncio.run(pipeline.run(dict(q)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        results.append((name, out, ms, k2.launches - before[0], k3.launches - before[1], dict(stages),
+                        model.last_stats[0]))
+        stages.clear()
+    launches = {"K2": k2.launches, "K3": k3.launches}
+    unsubscribe()
+    for name, out, ms, dk2, dk3, st, gs in results:
+        n_new = gs["new_tokens"][0]
+        split = ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
+        say(f"query {name!r}: prompt {gs['prompt_tokens'][0]} tokens, bucket {gs['bucket']}; prefill "
+            f"{gs['prefill_ms']:.1f} ms; {gs['steps']} verify blocks, {n_new} tokens generated, "
+            f"{gs['decode_ms'] / n_new:.2f} ms per generated token; run {ms:.1f} ms ({split}); "
+            f"K2 launches {dk2}, K3 launches {dk3}")
+        check(dk2 > 0 and dk3 > 0, f"query {name!r}: K2 or K3 did not run on the answer")
+        check(isinstance(out["answer"], str) and len(out["answer"]) > 0, f"query {name!r}: empty answer")
+        check(len(out["nodes"]) == pipeline.config.r_topk, f"query {name!r}: wrong result size")
+    check(len(recorder.prompts) == len(queries), "the pipeline did not answer through the generator")
+
+    # the three prompts at once: one dispatch at B=4 (one inactive row)
+    prompts = recorder.prompts
+    t = time.perf_counter()
+    model.generate_batch(prompts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    gs = model.last_stats
+    check(len(gs) == 1 and gs[0]["batch"] == 4, f"expected one dispatch at B=4, got {[(s['bucket'], s['batch']) for s in gs]}")
+    gs = gs[0]
+    n_tok = sum(gs["new_tokens"])
+    model.spec_tokens = 0
+    model.generate_batch(prompts)
+    ps = model.last_stats[0]
+    model.spec_tokens = GEN_SPEC
+    spec_tok, plain_tok = np.array(gs["tokens"]), np.array(ps["tokens"])
+    share = float((spec_tok == plain_tok).mean())
+    first_diff = [int(np.argmax(a != b)) if (a != b).any() else None for a, b in zip(spec_tok, plain_tok)]
+    say(f"batched: 3 prompts in one dispatch at B=4 (bucket {gs['bucket']}): prefill {gs['prefill_ms']:.1f} ms, "
+        f"{gs['steps']} verify blocks, {n_tok} tokens in {secs:.2f} s ({n_tok / secs:.1f} tokens/s); plain greedy "
+        f"(spec 0) {ps['steps']} steps, {ps['decode_ms'] / max(ps['steps'], 1):.2f} ms per step; tokens equal to "
+        f"plain greedy: {share:.3f} (first difference per row at {first_diff})")
+    # blocks of one token through the verify path have the plain steps' shapes
+    # (K2 at R=4, attention at Q=1 over the same slots), so their tokens must
+    # equal plain greedy's bit for bit: a difference above comes from the
+    # rounding of the larger verify shapes, not from the speculation logic
+    from easyrag_tpu_torch.models import decode as td
+
+    bucket, pad_id = gs["bucket"], model._pad_id()
+    rows = [td._pad_left(model._encode(p), bucket, pad_id) for p in prompts]
+    rows.append(td._pad_left([QWEN2_EOS[0]], bucket, pad_id))
+    dev = torch.device("cuda")
+    ones = td.generate_greedy_spec(
+        cfg, params, torch.tensor([r for r, _ in rows], dtype=torch.int32, device=dev),
+        torch.tensor([m for _, m in rows], dtype=torch.int32, device=dev),
+        torch.tensor(QWEN2_EOS, dtype=torch.int32, device=dev), GEN_MAX_NEW, draft_len=0,
+        active=torch.arange(4, device=dev) < 3,
+    )[:3].cpu().numpy()
+    same = bool((ones == plain_tok).all())
+    say(f"verify path with blocks of one token (draft_len 0): tokens equal to plain greedy on all 3 rows: {same}")
+    check(same, "the verify path with draft_len 0 differs from plain greedy decoding")
+    rel = generator_vs_cpu(torch, np, cfg, params)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"peak device memory in phase 5: {peak:.2f} GiB")
+    return launches, rel
+
+
 def main() -> int:
     try:
         import torch
@@ -474,17 +862,26 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from easyrag_tpu_torch.ops import flash_attention as k3
+    from easyrag_tpu_torch.ops import int4_matvec as k2
+
+    t_start = time.perf_counter()
     try:
         smi = phase_env(torch)
         phase_build()
         errs = phase_kernels(torch, f64, k5)
+        new_errs, new_times = phase_new_kernels(torch, k2, k3)
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
-            launches, mask, P = phase_pipeline(torch, np, f64, k5, tmp)
-        timings = phase_main_shapes(torch, f64, k5, mask, P)
+            pipeline, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, tmp)
+            timings = phase_main_shapes(torch, f64, k5, mask, P)
+            gen_launches, _ = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
         check(not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules), "something imported JAX")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    k2_ms, k2_plain = new_times[("gateup", 1)]
+    k3_ms, k3_plain = new_times[("K3", 1, 7680)]
     kernels = [
         {"name": "flash64_attention", "route": "cuda", "source": "easyrag_tpu_torch/csrc/flash64.cu",
          "replaces": "easyrag_tpu/ops/flash64.py:198", "launches": launches["K1"],
@@ -492,6 +889,12 @@ def main() -> int:
         {"name": "bm25_scores", "route": "cuda", "source": "easyrag_tpu_torch/csrc/bm25_scatter.cu",
          "replaces": "easyrag_tpu/ops/bm25_pallas.py:88", "launches": launches["K5"],
          "max_abs_err": max(errs["K5"], timings["K5"][2]), "ms": timings["K5"][0], "plain_ms": timings["K5"][1]},
+        {"name": "int4_matvec", "route": "cuda", "source": "easyrag_tpu_torch/csrc/int4_matvec.cu",
+         "replaces": "easyrag_tpu/ops/int4_matvec.py:112", "launches": gen_launches["K2"],
+         "max_abs_err": new_errs["K2"], "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "flash_attention", "route": "cuda", "source": "easyrag_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "easyrag_tpu/models/decode.py:130", "launches": gen_launches["K3"],
+         "max_abs_err": new_errs["K3"], "ms": k3_ms, "plain_ms": k3_plain},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -43,31 +43,51 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+def _paths(name: str):
+    """``(source, library)``: the library's name hashes the source and flags."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+
+
+def _compile(names) -> None:
+    """Run ``nvcc`` for every library of ``names`` not built yet, one process
+    per source, all started together."""
+    jobs = []
+    for name in names:
+        src, out = _paths(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, src, out, tmp, proc))
+    failed = []
+    for name, src, out, tmp, proc in jobs:
+        _, build_logs[name] = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{build_logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build(names) -> None:
+    """Build (if needed) every library of ``names`` at once, then load them."""
+    with _lock:
+        todo = [name for name in names if name not in _libs]
+        _compile(todo)
+        for name in todo:
+            _libs[name] = ctypes.CDLL(_paths(name)[1])
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a shared library."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                capture_output=True,
-                text=True,
-            )
-            build_logs[name] = proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        _libs[name] = lib
-        return lib
+    build([name])
+    return _libs[name]
 
 
 def check(rc: int, what: str) -> None:

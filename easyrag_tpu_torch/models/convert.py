@@ -1,13 +1,14 @@
-"""JAX parameter trees -> the port's modules.
+"""JAX parameter trees -> the port's modules and trees.
 
-The tree is ``easyrag_tpu.models.layers.init_params``'s layout plus
-``heads`` (layer -> ``[1, hidden]``), with every leaf a numpy array. Both
-packages store linear weights ``[out, in]``, so leaves copy over unchanged.
+The tree is ``easyrag_tpu.models.layers.init_params``'s layout (plus
+``heads``, layer -> ``[1, hidden]``, for the reranker), with every leaf a
+numpy array. Both packages store linear weights ``[out, in]``, so leaves copy
+over unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
@@ -56,3 +57,28 @@ def minicpm_from_jax(
         for layer_idx, w in params_np["heads"].items():
             put(model.heads[int(layer_idx)], w)
     return model
+
+
+_EXACT = ("w_q", "w_p", "scale")  # int8 bytes and f32 scales keep their dtype
+
+
+def causal_lm_params_from_jax(params_np: Dict[str, Any], device, dtype: torch.dtype) -> Dict[str, Any]:
+    """A JAX decoder tree (dense, int8, int4 or fused int4 linears, a dense
+    or int8 embedding table, an optional ``lm_head`` as an array or a dict)
+    -> the port's tree with the same keys, for ``models/decode.py``.
+    Quantized bytes and scales keep their dtypes; every other leaf becomes
+    ``dtype``."""
+
+    def leaf(key: str, arr) -> torch.Tensor:
+        if key in _EXACT:
+            return torch.from_numpy(np.array(arr)).to(device)
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    def tree(key: str, node: Union[Dict[str, Any], Any]):
+        if isinstance(node, dict):
+            return {k: tree(k, v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [tree(key, v) for v in node]
+        return leaf(key, node)
+
+    return tree("", params_np)

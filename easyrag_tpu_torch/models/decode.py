@@ -1,0 +1,590 @@
+"""Autoregressive generation: bucketed prefill + KV-cache greedy decode (port
+of ``easyrag_tpu/models/decode.py``).
+
+Two phases, as in the JAX package:
+
+* **prefill** -- one causal forward over the prompt padded LEFT to a length
+  bucket. Each layer's rotary-encoded K/V land in a preallocated
+  ``[B, S + max_new, kv_heads, head_dim]`` cache. Attention runs through the
+  K3 port (``ops/flash_attention.py``) where the JAX package runs the stock
+  kernel (head_dim and S multiples of 128; the CUDA kernel raises at a head
+  dim other than 128) and through the einsum formulation otherwise; the int4
+  projections at more than 64 rows unpack
+  and take one large ``torch.matmul``.
+* **decode** -- single-token steps (or, with speculation, verify blocks of
+  ``draft_len + 1`` tokens): projections through K2 for int4 trees, rotary at
+  the true per-row position, einsum attention against the cache with a
+  validity mask (``finfo(f32).min`` on invalid slots, never ``-inf``), and a
+  greedy argmax over the LM head.
+
+What differs from JAX: the KV cache and the token buffers are updated IN
+PLACE (JAX's arrays are immutable); the loops are Python loops that read
+one flag back from the device per step to stop as soon as every row is done
+(JAX's ``while_loop`` does the same on the device); out-of-range writes of a
+verify block go to spare slots past the end instead of being dropped, and
+those slots feed no emitted token.
+
+The parameter tree is the JAX package's (nested dicts, ``models/layers.py``
+linears), so trees convert leaf by leaf (``models/convert.py``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops.flash64 import apply_rope
+from ..ops.flash_attention import flash_attention, flash_attention_plain
+from .layers import DecoderConfig, embed, linear, mlp, rms_norm, rope_tables
+
+Cache = List[Dict[str, torch.Tensor]]
+MASK_VALUE = float(torch.finfo(torch.float32).min)
+
+
+def _dtype(params: Dict[str, Any]) -> torch.dtype:
+    """The tree's compute dtype (that of its norms)."""
+    return params["final_norm"].dtype
+
+
+def init_cache(cfg: DecoderConfig, batch: int, total_len: int, dtype: torch.dtype, device) -> Cache:
+    """Per-layer K/V buffers, rotary already applied at write time."""
+    shape = (batch, total_len, cfg.num_key_value_heads, cfg.hd)
+    return [
+        {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(cfg.num_hidden_layers)
+    ]
+
+
+def use_flash(hd: int, s: int) -> bool:
+    """The JAX prefill's gate for the stock flash kernel (``hd % 128 == 0 and
+    S % 128 == 0``)."""
+    return hd % 128 == 0 and s % 128 == 0
+
+
+def _qkv(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
+    b, s, _ = h.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    if "qkv" in p:  # fused int4 projection (quant.fuse_decode_tree): one K2 launch
+        y = linear(h, p["qkv"])
+        qd, kd = nh * hd, nkv * hd
+        return (
+            y[..., :qd].reshape(b, s, nh, hd),
+            y[..., qd : qd + kd].reshape(b, s, nkv, hd),
+            y[..., qd + kd :].reshape(b, s, nkv, hd),
+        )
+    return (
+        linear(h, p["q"]).reshape(b, s, nh, hd),
+        linear(h, p["k"]).reshape(b, s, nkv, hd),
+        linear(h, p["v"]).reshape(b, s, nkv, hd),
+    )
+
+
+def _mlp_residual(cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+    r = cfg.residual_scale
+    x = x + linear(attn_out, p["attn"]["o"]) * r
+    return x + mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps)) * r
+
+
+def _prefill_layer(
+    cfg: DecoderConfig,
+    p: Dict[str, Any],
+    x: torch.Tensor,  # [B, S, D]
+    cos: torch.Tensor,  # [B, S, hd]
+    sin: torch.Tensor,
+    kv_start: torch.Tensor,  # [B] int32: first real slot (left padding)
+    kv_end: torch.Tensor,  # [B] int32
+    cache: Dict[str, torch.Tensor],
+) -> torch.Tensor:
+    """One decoder layer over the full prompt; K/V land in ``cache[:, :S]``."""
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    q, k, v = _qkv(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    # K3 wherever the JAX package runs the stock kernel; its einsum path elsewhere.
+    # The CUDA kernel takes head_dim 128 only and raises at 256, 384, ...
+    attend = flash_attention if use_flash(hd, s) else flash_attention_plain
+    out = attend(
+        q.reshape(b, s, nh * hd), k.reshape(b, s, nkv * hd), v.reshape(b, s, nkv * hd).contiguous(),
+        kv_start, kv_end, hd ** -0.5, nkv,
+    )
+    return _mlp_residual(cfg, p, x, out)
+
+
+def _attend_cache(
+    cfg: DecoderConfig, q: torch.Tensor, cache: Dict[str, torch.Tensor], allowed: torch.Tensor, dtype
+) -> torch.Tensor:
+    """Queries ``[B, Q, nh, hd]`` against every cache slot, ``allowed``
+    ``[B, Q, T]``; f32 logits and softmax, probabilities in ``dtype``."""
+    b, qn = q.shape[:2]
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    qg = q.reshape(b, qn, nkv, nh // nkv, hd)
+    logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), cache["k"].float()) * hd ** -0.5
+    logits = torch.where(allowed[:, None, None], logits, MASK_VALUE)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bkgqt,btkd->bqkgd", probs, cache["v"]).reshape(b, qn, nh * hd)
+
+
+def _decode_layer(
+    cfg: DecoderConfig,
+    p: Dict[str, Any],
+    x: torch.Tensor,  # [B, 1, D]
+    pos: int,  # the cache slot every row writes (uniform left-padded layout)
+    kv_valid: torch.Tensor,  # [B, T] bool, this slot included
+    cos: torch.Tensor,  # [B, 1, hd]
+    sin: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+) -> torch.Tensor:
+    q, k, v = _qkv(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    return _mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, kv_valid[:, None, :], x.dtype))
+
+
+def _verify_layer(
+    cfg: DecoderConfig,
+    p: Dict[str, Any],
+    x: torch.Tensor,  # [B, Q, D]: the draft block
+    slots: torch.Tensor,  # [B, Q] cache slots these tokens occupy
+    allowed: torch.Tensor,  # [B, Q, T] visibility: valid cache slots + the block's causal triangle
+    cos: torch.Tensor,  # [B, Q, hd]
+    sin: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+) -> torch.Tensor:
+    """One decoder layer over a speculative verify block. K/V of every
+    position are written first; rejected slots are never marked valid and
+    the next block overwrites them."""
+    q, k, v = _qkv(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    cache["k"][rows, slots] = k
+    cache["v"][rows, slots] = v
+    return _mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, allowed, x.dtype))
+
+
+def _lm_logits(cfg: DecoderConfig, params: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden ``[..., D]`` -> f32 vocab logits."""
+    if cfg.dim_model_base:  # MiniCPM logit scaling
+        h = h / (cfg.hidden_size / cfg.dim_model_base)
+    head = params.get("lm_head")
+    if head is None:  # tied embeddings; an int8 table doubles as an int8 head
+        emb = params["embed"]
+        head = emb if isinstance(emb, dict) else {"w": emb}
+    elif not isinstance(head, dict):
+        head = {"w": head}
+    return linear(h, head).float()
+
+
+def _prefill(
+    cfg: DecoderConfig,
+    params: Dict[str, Any],
+    input_ids: torch.Tensor,  # [B, S] LEFT-padded
+    attention_mask: torch.Tensor,  # [B, S]
+    cache: Cache,
+) -> torch.Tensor:
+    """Prompt forward; returns the final-normed hidden of the last slot
+    ``[B, D]`` (left padding: the last real token)."""
+    b, s = input_ids.shape
+    lengths = attention_mask.sum(dim=1).to(torch.int32)
+    pos = torch.arange(s, dtype=torch.int32, device=input_ids.device)
+    positions = torch.clamp(pos[None, :] - (s - lengths)[:, None], min=0)
+    cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    kv_start = (s - lengths).to(torch.int32)
+    kv_end = torch.full_like(kv_start, s)
+    h = embed(cfg, params["embed"], input_ids, _dtype(params))
+    for idx in range(cfg.num_hidden_layers):
+        h = _prefill_layer(cfg, params["layers"][idx], h, cos, sin, kv_start, kv_end, cache[idx])
+    return rms_norm(h[:, -1], params["final_norm"], cfg.rms_norm_eps)
+
+
+def _is_eos(tok: torch.Tensor, eos_ids: torch.Tensor) -> torch.Tensor:
+    return (tok[..., None] == eos_ids).any(dim=-1)
+
+
+def _sync_ms(t0: float, device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+@torch.inference_mode()
+def generate_greedy(
+    cfg: DecoderConfig,
+    params: Dict[str, Any],
+    input_ids: torch.Tensor,  # [B, S] LEFT-padded
+    attention_mask: torch.Tensor,  # [B, S]
+    eos_ids: torch.Tensor,  # [E]
+    max_new_tokens: int,
+    limit: Optional[int] = None,  # step cap (<= max_new_tokens)
+    active: Optional[torch.Tensor] = None,  # [B] bool; False rows emit EOS only
+    stats: Optional[Dict[str, float]] = None,
+) -> torch.Tensor:
+    """Greedy decode: ``[B, max_new_tokens]`` int32; slots after a row's EOS
+    hold ``eos_ids[0]`` (the emitted EOS is kept). Stops once every row is
+    done. ``stats``, when given, receives ``prefill_ms``, ``steps`` (decode
+    forwards) and ``decode_ms`` (each time ends in a device sync)."""
+    dev = input_ids.device
+    b, s = input_ids.shape
+    eos0 = int(eos_ids[0])
+    t0 = time.perf_counter()
+    cache = init_cache(cfg, b, s + max_new_tokens, _dtype(params), dev)
+    lengths = attention_mask.sum(dim=1).to(torch.int32)
+    tok = _lm_logits(cfg, params, _prefill(cfg, params, input_ids, attention_mask, cache)).argmax(-1)
+    if stats is not None:
+        stats["prefill_ms"] = _sync_ms(t0, dev)
+        t0 = time.perf_counter()
+    kv_valid = torch.cat([attention_mask > 0, torch.zeros(b, max_new_tokens, dtype=torch.bool, device=dev)], dim=1)
+    out = torch.full((b, max_new_tokens), eos0, dtype=torch.int32, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev) if active is None else ~active.to(dev)
+    step_cap = max_new_tokens if limit is None else min(limit, max_new_tokens)
+    step = 0
+    while step < step_cap and not bool(done.all()):
+        out[:, step] = torch.where(done, eos0, tok)
+        done = done | _is_eos(tok, eos_ids)
+        step += 1
+        if step == step_cap or bool(done.all()):
+            break  # the token this step would produce is never written
+        pos = s + step - 1  # uniform cache slot (left padding)
+        kv_valid[:, pos] = ~done
+        cos, sin = rope_tables((lengths + step - 1)[:, None], cfg.hd, cfg.rope_theta)
+        h = embed(cfg, params["embed"], tok[:, None], _dtype(params))
+        for idx in range(cfg.num_hidden_layers):
+            h = _decode_layer(cfg, params["layers"][idx], h, pos, kv_valid, cos, sin, cache[idx])
+        h = rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps)
+        tok = _lm_logits(cfg, params, h).argmax(-1)
+    if stats is not None:
+        stats["steps"] = max(step - 1, 0)
+        stats["decode_ms"] = _sync_ms(t0, dev)
+    return out
+
+
+def _ngram_draft(
+    buf: torch.Tensor,  # [B, L] token history (left-padded prompt + emitted)
+    start: torch.Tensor,  # [B] first valid index
+    end: torch.Tensor,  # [B] one past the last valid index
+    ngram: int,
+    draft_len: int,
+) -> torch.Tensor:
+    """Prompt-lookup drafts: the ``draft_len`` tokens that followed the most
+    recent earlier occurrence of the row's trailing ``ngram``. Rows without
+    a match draft clamped garbage; verification rejects it, so drafts change
+    speed, never output."""
+    b, l = buf.shape
+    dev = buf.device
+    rows = torch.arange(b, device=dev)[:, None]
+    key = buf[rows, torch.clamp(end[:, None] - ngram + torch.arange(ngram, device=dev), 0, l - 1)]
+    pos = torch.arange(l, device=dev)[None, :]  # window END index
+    match = torch.ones(b, l, dtype=torch.bool, device=dev)
+    for j in range(ngram):
+        shifted = torch.cat([torch.zeros(b, j, dtype=buf.dtype, device=dev), buf[:, : l - j]], dim=1)
+        match &= shifted == key[:, ngram - 1 - j][:, None]
+    match &= pos - (ngram - 1) >= start[:, None]  # window inside the valid range
+    match &= pos <= end[:, None] - 1 - draft_len  # and the whole draft too
+    best = torch.where(match, pos, -1).max(dim=1).values
+    src = torch.clamp(best[:, None] + 1 + torch.arange(draft_len, device=dev), 0, l - 1)
+    return buf[rows, src]
+
+
+@torch.inference_mode()
+def generate_greedy_spec(
+    cfg: DecoderConfig,
+    params: Dict[str, Any],
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    eos_ids: torch.Tensor,
+    max_new_tokens: int,
+    draft_len: int = 7,
+    ngram: int = 2,
+    limit: Optional[int] = None,
+    active: Optional[torch.Tensor] = None,
+    stats: Optional[Dict[str, float]] = None,
+) -> torch.Tensor:
+    """Greedy decode with prompt-lookup speculation: each step verifies
+    ``draft_len`` drafted tokens in one forward over ``draft_len + 1``
+    positions and keeps the leading run equal to the model's own argmax, so
+    the tokens equal :func:`generate_greedy`'s (exact in f32; in bf16 the
+    verify block's larger products may round differently). Rows progress
+    independently: cache slots, rope positions and output offsets are per
+    row. ``stats`` receives ``prefill_ms``, ``steps`` (verify blocks) and
+    ``decode_ms``."""
+    dev = input_ids.device
+    b, s = input_ids.shape
+    k1 = draft_len + 1
+    t_total = s + max_new_tokens
+    t_cache = t_total + draft_len  # a late block's slots past t_total feed no emitted token
+    eos0 = int(eos_ids[0])
+    t0 = time.perf_counter()
+    cache = init_cache(cfg, b, t_cache, _dtype(params), dev)
+    lengths = attention_mask.sum(dim=1).to(torch.int32)
+    first = _lm_logits(cfg, params, _prefill(cfg, params, input_ids, attention_mask, cache)).argmax(-1)
+    if stats is not None:
+        stats["prefill_ms"] = _sync_ms(t0, dev)
+        t0 = time.perf_counter()
+    done = torch.zeros(b, dtype=torch.bool, device=dev) if active is None else ~active.to(dev)
+    first = torch.where(done, eos0, first).to(torch.int32)
+    step_cap = max_new_tokens if limit is None else min(limit, max_new_tokens)
+    # token history: prompt + emitted; `first` is emitted token 0. The last
+    # column takes the writes of tokens that are not emitted.
+    buf = torch.cat(
+        [input_ids.to(torch.int32), torch.full((b, max_new_tokens + 1), eos0, dtype=torch.int32, device=dev)], dim=1
+    )
+    buf[:, s] = first
+    n = torch.ones(b, dtype=torch.int32, device=dev)
+    done = done | _is_eos(first, eos_ids) | (n >= step_cap)
+    # kv validity: prompt slots from prefill; an emitted token's K/V are
+    # written by the verify block that consumes it. The last column again
+    # takes the writes of slots that are not accepted.
+    kv_valid = torch.cat([attention_mask > 0, torch.zeros(b, t_cache - s + 1, dtype=torch.bool, device=dev)], dim=1)
+    start = s - lengths
+    rows = torch.arange(b, device=dev)
+    j_idx = torch.arange(k1, device=dev)[None, :]
+    t_idx = torch.arange(t_cache, device=dev)[None, None, :]
+    blocks = 0
+    while not bool(done.all()):
+        blocks += 1
+        last = buf[rows, torch.clamp(s + n - 1, 0, t_total - 1)]
+        draft = _ngram_draft(buf[:, :t_total], start, s + n, ngram, draft_len)
+        tokens_in = torch.cat([last[:, None], draft], dim=1)
+        cur = s + n - 1  # cache slot of `last` = its sequence index
+        slots = cur[:, None] + j_idx
+        cos, sin = rope_tables((lengths + n - 1)[:, None] + j_idx, cfg.hd, cfg.rope_theta)
+        allowed = kv_valid[:, None, :t_cache] | ((t_idx >= cur[:, None, None]) & (t_idx <= slots[:, :, None]))
+        h = embed(cfg, params["embed"], tokens_in, _dtype(params))
+        for idx in range(cfg.num_hidden_layers):
+            h = _verify_layer(cfg, params["layers"][idx], h, slots, allowed, cos, sin, cache[idx])
+        h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        preds = _lm_logits(cfg, params, h).argmax(-1).to(torch.int32)  # preds[:, j] follows tokens_in[:, :j+1]
+        acc = torch.cumprod((draft == preds[:, :-1]).to(torch.int32), dim=1).sum(dim=1)
+        first_eos = torch.where(_is_eos(preds, eos_ids), j_idx, k1).min(dim=1).values
+        m = torch.minimum(torch.minimum(acc + 1, first_eos + 1), step_cap - n)
+        m = torch.where(done, 0, m)
+        emit = j_idx < m[:, None]
+        buf[rows[:, None], torch.where(emit, (s + n)[:, None] + j_idx, t_total)] = preds
+        kv_valid[rows[:, None], torch.where(emit, cur[:, None] + j_idx, t_cache)] = True
+        n = n + m
+        done = done | ((m > 0) & (first_eos < m)) | (n >= step_cap)
+    if stats is not None:
+        stats["steps"] = blocks
+        stats["decode_ms"] = _sync_ms(t0, dev)
+    gen = buf[:, s:t_total]
+    return torch.where(torch.arange(max_new_tokens, device=dev)[None, :] < n[:, None], gen, eos0)
+
+
+def _pad_left(ids: Sequence[int], bucket: int, pad_id: int) -> Tuple[List[int], List[int]]:
+    pad = bucket - len(ids)
+    return [pad_id] * pad + list(ids), [0] * pad + [1] * len(ids)
+
+
+def eos_ids_of(model_dir: str, hf: Dict[str, Any], tokenizer) -> List[int]:
+    """``config.json``'s EOS ids plus ``generation_config.json``'s, as HF
+    ``generate`` honours both (Qwen2-7B-Instruct declares [151643, 151645]
+    in the latter, only 151645 in the former)."""
+    eos = hf.get("eos_token_id", tokenizer.eos_token_id)
+    eos_ids = [eos] if isinstance(eos, int) else list(eos)
+    path = os.path.join(model_dir, "generation_config.json")
+    if os.path.exists(path):
+        with open(path, encoding="utf-8") as f:
+            g = json.load(f).get("eos_token_id")
+        for e in [g] if isinstance(g, int) else (g or []):
+            if e not in eos_ids:
+                eos_ids.append(e)
+    return eos_ids
+
+
+class TorchCausalLM:
+    """The local generation backend of the pipeline's ``local_llm`` option
+    (port of ``easyrag_tpu/models/decode.py::JaxCausalLM``): chat template,
+    greedy, total length capped at ``MAX_LENGTH``; prompts grouped by length
+    bucket, each group one batched dispatch with its batch padded to a power
+    of two (padding rows start done)."""
+
+    MAX_LENGTH = 8192
+
+    def __init__(
+        self,
+        model_dir: str,
+        dtype: torch.dtype = torch.bfloat16,
+        quant: str = "int8",
+        max_new_tokens: Optional[int] = None,
+        buckets: Sequence[int] = (256, 512, 1024, 2048, 4096, 7680),
+        max_batch: int = 8,
+        spec_tokens: int = 0,
+        spec_ngram: int = 2,
+        device=None,
+    ) -> None:
+        """Load a local Qwen2 checkpoint (``quant``: "", "int8" or "int4";
+        int4 trees are fused, ``quant.fuse_decode_tree``) onto ``device``
+        (default: the card when there is one)."""
+        from transformers import AutoTokenizer
+
+        from .hf_loader import load_decoder_params, load_hf_config
+        from .quant import fuse_decode_tree
+        from .qwen2 import qwen2_config_from_hf
+
+        if not os.path.isdir(model_dir):
+            raise FileNotFoundError(f"local LLM: {model_dir!r} is not a local model directory")
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        hf = load_hf_config(model_dir)
+        cfg = qwen2_config_from_hf(hf)
+        params = load_decoder_params(model_dir, cfg.num_hidden_layers, dtype=dtype, quant=quant, device=device)
+        if quant == "int4":
+            params = fuse_decode_tree(params)
+        tokenizer = AutoTokenizer.from_pretrained(model_dir, trust_remote_code=True)
+        self._setup(cfg, params, tokenizer, eos_ids_of(model_dir, hf, tokenizer), max_new_tokens, buckets,
+                    max_batch, spec_tokens, spec_ngram)
+
+    @classmethod
+    def from_params(
+        cls,
+        cfg: DecoderConfig,
+        params: Dict[str, Any],
+        tokenizer,
+        eos_ids: Sequence[int],
+        max_new_tokens: Optional[int] = None,
+        buckets: Sequence[int] = (256, 512, 1024, 2048, 4096, 7680),
+        max_batch: int = 8,
+        spec_tokens: int = 0,
+        spec_ngram: int = 2,
+    ) -> "TorchCausalLM":
+        """A model over an in-memory tree (on the device of its tensors) and
+        a tokenizer with ``apply_chat_template``/``decode``/``pad_token_id``."""
+        self = cls.__new__(cls)
+        self._setup(cfg, params, tokenizer, eos_ids, max_new_tokens, buckets, max_batch, spec_tokens, spec_ngram)
+        return self
+
+    def _setup(self, cfg, params, tokenizer, eos_ids, max_new_tokens, buckets, max_batch, spec_tokens, spec_ngram):
+        self.cfg = cfg
+        self.params = params
+        self.tokenizer = tokenizer
+        self.eos_ids = list(eos_ids)
+        self.device = params["final_norm"].device
+        # None -> generate up to total length MAX_LENGTH; an int caps new tokens
+        self.max_new_tokens = max_new_tokens
+        self.buckets = tuple(sorted(buckets))
+        self.max_batch = max_batch
+        self.spec_tokens = spec_tokens  # drafts verified per step, 0 = plain decode
+        self.spec_ngram = spec_ngram
+        #: per dispatch of the last generate_batch: bucket, batch, prompt and
+        #: generated token counts, the real rows' tokens, prefill_ms, steps,
+        #: decode_ms
+        self.last_stats: List[Dict[str, Any]] = []
+
+    def _encode(self, query: str) -> List[int]:
+        ids = self.tokenizer.apply_chat_template([{"role": "user", "content": query}], add_generation_prompt=True)
+        # the prompt fits the largest bucket and leaves room for one new token
+        cap = min(self.buckets[-1], self.MAX_LENGTH - 1)
+        if self.max_new_tokens is not None:
+            cap = min(cap, self.MAX_LENGTH - self.max_new_tokens)
+        return list(ids[-cap:])
+
+    def _bucket(self, n: int) -> int:
+        return next(b for b in self.buckets if n <= b)
+
+    def _bucket_max_new(self, bucket: int) -> int:
+        max_new = self.MAX_LENGTH - bucket
+        return max_new if self.max_new_tokens is None else min(self.max_new_tokens, max_new)
+
+    def _first_eos(self, toks: List[int]) -> Optional[int]:
+        return min((toks.index(e) for e in self.eos_ids if e in toks), default=None)
+
+    def _decode_row(self, toks: List[int]) -> str:
+        cut = self._first_eos(toks)
+        if cut is not None:
+            toks = toks[:cut]
+        return self.tokenizer.decode(toks, skip_special_tokens=True)
+
+    def _pad_id(self) -> int:
+        return self.tokenizer.pad_token_id or self.eos_ids[0]
+
+    def _run_group(self, rows, masks, max_new: int, n_real: int, limit: Optional[int] = None, stats=None):
+        """One batched dispatch; ``[B, max_new]`` int32 on the host."""
+        dev = self.device
+        b = len(rows)
+        ids = torch.tensor(rows, dtype=torch.int32, device=dev)
+        mask = torch.tensor(masks, dtype=torch.int32, device=dev)
+        eos = torch.tensor(self.eos_ids, dtype=torch.int32, device=dev)
+        active = torch.arange(b, device=dev) < n_real
+        if self.spec_tokens:
+            out = generate_greedy_spec(
+                self.cfg, self.params, ids, mask, eos, max_new, draft_len=self.spec_tokens, ngram=self.spec_ngram,
+                limit=limit, active=active, stats=stats,
+            )
+        else:
+            out = generate_greedy(self.cfg, self.params, ids, mask, eos, max_new, limit=limit, active=active,
+                                  stats=stats)
+        return out.cpu()
+
+    def generate(self, query: str) -> str:
+        return self.generate_batch([query])[0]
+
+    def generate_batch(self, queries: Sequence[str]) -> List[str]:
+        """Batched greedy generation: prompts group by length bucket, each
+        group (at most ``max_batch`` rows, padded to a power of two) is one
+        dispatch; answers come back in order."""
+        encs = [self._encode(q) for q in queries]
+        groups: Dict[int, List[int]] = {}
+        for i, ids in enumerate(encs):
+            groups.setdefault(self._bucket(len(ids)), []).append(i)
+        pad_id = self._pad_id()
+        out: List[Optional[str]] = [None] * len(queries)
+        self.last_stats = []
+        for bucket, idxs in groups.items():
+            max_new = self._bucket_max_new(bucket)
+            dummy = _pad_left([self.eos_ids[0]], bucket, pad_id)
+            for lo in range(0, len(idxs), self.max_batch):
+                chunk = idxs[lo : lo + self.max_batch]
+                b = 1 << (len(chunk) - 1).bit_length()
+                rows = [_pad_left(encs[i], bucket, pad_id) for i in chunk] + [dummy] * (b - len(chunk))
+                stats: Dict[str, Any] = {"bucket": bucket, "batch": b, "prompt_tokens": [len(encs[i]) for i in chunk]}
+                toks = self._run_group([r for r, _ in rows], [m for _, m in rows], max_new, len(chunk), stats=stats)
+                stats["tokens"] = [toks[j].tolist() for j in range(len(chunk))]
+                stats["new_tokens"] = []
+                for i, row in zip(chunk, stats["tokens"]):
+                    cut = self._first_eos(row)
+                    stats["new_tokens"].append(len(row) if cut is None else cut + 1)  # emitted, the EOS included
+                    out[i] = self._decode_row(row)
+                self.last_stats.append(stats)
+        return out  # type: ignore[return-value]
+
+    def plan_groups(self, queries: Sequence[str]) -> List[Tuple[int, int]]:
+        """The ``(bucket, group size)`` plan ``generate_batch`` would use,
+        without device work."""
+        groups: Dict[int, int] = {}
+        for q in queries:
+            bucket = self._bucket(len(self._encode(q)))
+            groups[bucket] = groups.get(bucket, 0) + 1
+        return sorted(groups.items())
+
+    def warmup(
+        self,
+        buckets: Optional[Sequence[int]] = None,
+        batch_sizes: Sequence[int] = (1,),
+        pairs: Optional[Sequence[Tuple[int, int]]] = None,
+    ) -> None:
+        """Run each ``(bucket, B)`` shape once off the request path (prefill
+        plus a first step; with speculation, one verify block), so its
+        allocations and kernel builds happen here. ``pairs`` gives an
+        explicit list; otherwise ``buckets`` x ``batch_sizes``."""
+        if pairs is not None:
+            work = [(bk, (b,)) for bk, b in pairs]
+        else:
+            work = [(bk, tuple(batch_sizes)) for bk in (buckets or self.buckets)]
+        pad_id = self._pad_id()
+        for bucket, sizes in work:
+            bucket = self._bucket(bucket)
+            dummy = _pad_left([self.eos_ids[0]], bucket, pad_id)
+            for b in sizes:
+                rows = [dummy] * b
+                # the prefill token counts as one emitted: limit 2 reaches a verify block
+                self._run_group([r for r, _ in rows], [m for _, m in rows], self._bucket_max_new(bucket), b,
+                                limit=2 if self.spec_tokens else 1)

@@ -1,23 +1,33 @@
-"""Decoder core (port of ``easyrag_tpu/models/layers.py``, the MiniCPM slice).
+"""Decoder core (port of ``easyrag_tpu/models/layers.py``).
 
-Dense bf16/f32 weights stored ``[out, in]`` as in the JAX tree; RMSNorm in
-f32; rotate-half RoPE from batch-shared positions; attention through the K1
-port (``ops/flash64.py``) for head_dim-64 multi-head attention and through
-the einsum formulation otherwise; SiLU MLP; MiniCPM's residual scale
+Weights are stored ``[out, in]`` as in the JAX tree; RMSNorm in f32;
+rotate-half RoPE; SiLU MLP; MiniCPM's residual scale
 ``scale_depth / sqrt(num_layers)`` and embedding scale ``scale_emb``.
 Padding is a per-row key range ``[kv_start, kv_end)`` instead of a mask.
+
+Two forms share these pieces:
+
+* :class:`DecoderLayer`, the MiniCPM reranker's module (dense weights,
+  batch-shared positions, attention through the K1 port ``ops/flash64.py``
+  for head_dim-64 multi-head attention, the einsum formulation otherwise);
+* the generator's functions over a JAX-layout tree of dicts
+  (:func:`linear`, :func:`mlp`, :func:`embed`), where a linear is dense
+  (``w``), int8 (``w_q``/``scale``) or int4 (``w_p``/``scale``), each with an
+  optional bias ``b``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import int4_matvec
 from ..ops.flash64 import apply_rope, flash64_attention, masked_attention
+from .quant import unpack_int4
 
 
 @dataclass(frozen=True)
@@ -31,6 +41,7 @@ class DecoderConfig:
     head_dim: Optional[int] = None
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+    attention_bias: bool = False  # True for Qwen2 QKV
     # MiniCPM mup-style scalings (1.0 / 0.0 = disabled)
     scale_emb: float = 1.0
     scale_depth: float = 0.0
@@ -53,11 +64,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (normed * weight.float()).to(x.dtype)
 
 
-def rope_tables(seq_len: int, head_dim: int, theta: float, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 rotate-half cos/sin tables ``[S, head_dim]`` for positions
-    ``0..S-1``."""
-    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
-    angles = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None] * inv_freq[None, :]
+def rope_tables(
+    positions: Union[int, torch.Tensor], head_dim: int, theta: float, device=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 rotate-half cos/sin tables. An int ``S`` gives ``[S, head_dim]``
+    for positions ``0..S-1``; a ``[B, S]`` tensor of positions gives
+    ``[B, S, head_dim]`` (the JAX signature)."""
+    if isinstance(positions, int):
+        positions = torch.arange(positions, device=device)
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim))
+    angles = positions.float()[..., None] * inv_freq
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)
 
@@ -114,6 +130,56 @@ class DecoderLayer(nn.Module):
         return x + h * r
 
 
-def embed(cfg: DecoderConfig, table: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
-    h = F.embedding(input_ids.long(), table)
+def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``x @ W.T (+ b)`` for a dense, int8 or int4 linear of a JAX-layout tree.
+
+    Int4 with at most ``int4_matvec.MAX_ROWS`` rows goes to K2, whose math
+    is the TPU kernel's (f32 sums, f32 rescale, one cast). More rows unpack
+    the nibbles and take one large ``torch.matmul`` with the XLA formula
+    ``(x @ w.T) * scale`` in x's dtype, as the JAX package leaves prefill to
+    XLA; in f32 the two agree to rounding. Int8 is the XLA formula too."""
+    if "w_p" in p:
+        rows = x.numel() // x.shape[-1]
+        n_out = p["w_p"].shape[0]
+        if rows <= int4_matvec.MAX_ROWS:
+            y2 = int4_matvec.int4_matvec(x.reshape(rows, x.shape[-1]).contiguous(), p["w_p"], p["scale"])
+            y = y2.reshape(*x.shape[:-1], n_out)
+        else:
+            y = (x @ unpack_int4(p["w_p"]).t().to(x.dtype)) * p["scale"].to(x.dtype)
+    elif "w_q" in p:
+        y = (x @ p["w_q"].t().to(x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        y = x @ p["w"].t()
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def mlp(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """SiLU MLP of a tree layer; ``gateup`` is the fused gate+up, split at
+    its midpoint (``quant.fuse_decode_tree`` fuses equal widths only)."""
+    if "gateup" in p:
+        y = linear(x, p["gateup"])
+        inter = y.shape[-1] // 2
+        gate, up = y[..., :inter], y[..., inter:]
+    else:
+        gate, up = linear(x, p["gate"]), linear(x, p["up"])
+    return linear(F.silu(gate) * up, p["down"])
+
+
+def embed(
+    cfg: DecoderConfig,
+    table: Union[torch.Tensor, Dict[str, torch.Tensor]],
+    input_ids: torch.Tensor,
+    dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Rows of the embedding table, times ``scale_emb``. An int8 table
+    (``{"w_q", "scale"}``, per-row scales) is dequantized on the gathered
+    rows into ``dtype``."""
+    ids = input_ids.long()
+    if isinstance(table, dict):
+        rows = F.embedding(ids, table["w_q"]).to(dtype)
+        h = rows * table["scale"][ids].to(dtype)[..., None]
+    else:
+        h = F.embedding(ids, table)
     return h * cfg.scale_emb if cfg.scale_emb != 1.0 else h

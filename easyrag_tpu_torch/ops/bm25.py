@@ -52,14 +52,14 @@ def bm25_score_topk(
     use_pallas: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score + filter + top-k. ``doc_ids``/``vals`` are ``[P]`` or ``[B, P]``;
-    ``dir_filter`` a scalar or ``[B]`` int tensor. ``use_pallas`` (the config
-    name of the TPU kernel switch) routes the scatter through the K5 port;
-    otherwise the plain scatter-add runs (the counterpart of
-    ``easyrag_tpu.ops.bm25.bm25_scores``), which on CUDA adds with atomics in
-    a varying order, so near-tied scores may flip between runs."""
+    ``dir_filter`` a scalar or ``[B]`` int tensor. The scatter always goes
+    through ``bm25_scatter.bm25_scores``: the K5 kernel for CUDA tensors (the
+    same sums every run; a float-atomic scatter would reorder them and flip
+    near-ties), its plain version for CPU tensors. ``use_pallas``, the TPU
+    kernel switch of the shared config, selects nothing here."""
+    del use_pallas
     batched = doc_ids.dim() == 2
-    fn = bm25_scatter.bm25_scores if use_pallas else bm25_scatter.bm25_scores_plain
-    scores = fn(doc_ids, vals, num_docs)
+    scores = bm25_scatter.bm25_scores(doc_ids, vals, num_docs)
     s = scores if batched else scores[None, :]
     top_vals, top_idx = filter_topk(s, k, dir_col, dir_filter)
     if not batched:

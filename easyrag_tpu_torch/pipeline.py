@@ -4,9 +4,13 @@
 (``pipeline.py:351-391``): content BM25 (top ``f_topk_2``) and know-path BM25
 (top ``f_topk_3``), both resident on the device and scored together for the
 query, content fusion, the injected reranker (``LLMRerank`` over the port's
-MiniCPM scorer), the top contexts into the QA template, and generation through
-the injected LLM. Every other route or option of the config raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+MiniCPM scorer), the top contexts into the QA template, and generation. The
+answer comes from the injected LLM, or, with ``local_llm_name`` and
+``tpu.local_llm_answer``, from the on-device generator
+(``models/decode.py::TorchCausalLM``) behind the shared
+``generation.BatchingLocalLLM``, as ``easyrag_tpu/pipeline.py:99-127`` wires
+it. Every other route or option of the config raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from easyrag_tpu.corpus.reader import read_data
 from easyrag_tpu.corpus.splitter import SentenceSplitter
 from easyrag_tpu.corpus.tokenizer import JiebaTokenizer, default_stopwords, load_stopwords
 from easyrag_tpu.corpus.views import get_node_content
-from easyrag_tpu.generation import CompletionResponse, OpenAICompatLLM, generation
+from easyrag_tpu.generation import BatchingLocalLLM, CompletionResponse, OpenAICompatLLM, generation
 from easyrag_tpu.schema import NodeWithScore, QueryBundle, build_nodeid2idx
 from easyrag_tpu.templates import MERGE_TEMPLATE, QA_TEMPLATE, PromptTemplate
 from easyrag_tpu.utils.events import emit
@@ -50,7 +54,10 @@ def _check_supported(cfg: EasyRAGConfig, reranker) -> None:
         (cfg.split_type != 0, "split_type=1: hierarchical auto-merge retrieval is ROADMAP Queue 1, item 7"),
         (cfg.hyde or cfg.hyde_merging, "HyDE is ROADMAP Queue 1, item 7"),
         (bool(cfg.index_artifact_path), "index_artifact_path: the corpus artifact is ROADMAP Queue 1, item 7"),
-        (bool(cfg.local_llm_name), "local_llm_name: the local decoder is ROADMAP Queue 1, item 8"),
+        (bool(cfg.local_llm_name and cfg.tpu.local_llm_answer and cfg.tpu.local_llm_continuous),
+         "tpu.local_llm_continuous: the continuous-batching decode pool is ROADMAP Queue 1, item 9"),
+        (bool(cfg.local_llm_name) and cfg.tpu.local_llm_quant in ("w8a8", "w4a8"),
+         f"tpu.local_llm_quant={cfg.tpu.local_llm_quant}: activation quantization is ROADMAP Queue 1, item 4"),
         (bool(cfg.compress_method), "compress_method: context compression is ROADMAP Queue 1, item 7"),
         (bool(cfg.tpu.shard_index or cfg.tpu.mesh_shape), "sharded indexes are ROADMAP Queue 1, item 13"),
         (reranker is None and cfg.use_reranker != 0,
@@ -84,8 +91,15 @@ class EasyRAGPipeline:
         self.re_only = cfg.re_only
         self.llm_embed_type = cfg.llm_embed_type
         self.ans_refine_type = cfg.ans_refine_type
+        self.local_llm = None
         if llm is not None:
             self.llm = llm
+        elif cfg.local_llm_name and cfg.tpu.local_llm_answer:
+            # the on-device generator answers; concurrent requests share decodes
+            self.local_llm = self._make_local_llm(cfg, self.device)
+            self.llm = BatchingLocalLLM(
+                self.local_llm, window_ms=cfg.serve_window_ms, max_batch=cfg.tpu.local_llm_gen_batch
+            )
         elif cfg.llm_keys:
             self.llm = OpenAICompatLLM(api_keys=cfg.llm_keys, model=cfg.llm_name, api_base=cfg.llm_api_base)
         else:
@@ -127,6 +141,8 @@ class EasyRAGPipeline:
             self.path_retriever = BM25Retriever(similarity_top_k=cfg.f_topk_3, embed_type=5, **route)  # know_path
             self._dual_scorer = DualResidentScorer(self.sparse_retriever._resident, self.path_retriever._resident)
         self.reranker = reranker
+        if cfg.local_llm_name and self.local_llm is None:  # local_llm_generate only
+            self.local_llm = self._make_local_llm(cfg, self.device)
 
     # -- query-time helpers ---------------------------------------------------
 
@@ -149,6 +165,33 @@ class EasyRAGPipeline:
             if idx >= 0:
                 self._ctx_cache[idx] = cached
         return cached
+
+    @staticmethod
+    def _make_local_llm(cfg: EasyRAGConfig, device: torch.device):
+        """The local generator per ``tpu.local_llm_backend``: "jax" is the
+        port's KV-cache decoder, "hf" the shared HuggingFace wrapper."""
+        if cfg.tpu.local_llm_backend == "jax":
+            from .models.decode import TorchCausalLM
+
+            return TorchCausalLM(
+                cfg.local_llm_name,
+                quant=cfg.tpu.local_llm_quant,
+                max_new_tokens=cfg.tpu.local_llm_max_new or None,
+                max_batch=cfg.tpu.local_llm_gen_batch,
+                spec_tokens=cfg.tpu.local_llm_spec,
+                spec_ngram=cfg.tpu.local_llm_spec_ngram,
+                device=device,
+            )
+        from easyrag_tpu.generation import LocalHFLLM
+
+        return LocalHFLLM(cfg.local_llm_name)
+
+    def local_llm_generate(self, query: str) -> str:
+        """Greedy chat completion of ``query`` by the local generator
+        (reference ``pipeline.py:320-321``)."""
+        if self.local_llm is None:
+            raise RuntimeError("local_llm_name not configured")
+        return self.local_llm.generate(query)
 
     async def generation(self, llm, prompt: str) -> CompletionResponse:
         if llm is None:

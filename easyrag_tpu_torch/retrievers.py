@@ -3,8 +3,8 @@
 :class:`BM25Retriever` scores one content view of the node list on the
 device-resident index; a query with more distinct terms than the resident
 index takes (``max_query_terms``) overflows to the gather path: the host
-gathers its postings and ``ops.bm25.bm25_score_topk`` scatters them (K5 when
-``use_pallas``). :class:`HybridRetriever` carries the reference's content
+gathers its postings and ``ops.bm25.bm25_score_topk`` scatters them (K5 on
+CUDA). :class:`HybridRetriever` carries the reference's content
 fusion (``retrievers.py:239-253``).
 """
 

@@ -221,3 +221,23 @@ def test_scatter_kernel_matches_plain_on_card(cuda, B):
     empty = bm25_scatter.bm25_scores(ids_t[:, :0].contiguous(), vals_t[:, :0].contiguous(), N)
     torch.cuda.synchronize()
     assert empty.shape == (B, N) and (empty == 0).all()
+
+
+@pytest.mark.cuda
+def test_overflow_route_without_pallas_runs_k5_on_card(cuda, corpus):
+    # use_pallas=False still scatters through K5 on CUDA: a float-atomic
+    # scatter-add would reorder the sums and flip near-ties between runs
+    _, idx = _indexes(corpus)
+    q = sorted({t for doc in corpus[0][:12] for t in doc})  # many terms: the overflow gather path
+    ids, vals = idx.gather_postings(idx.query_term_ids(q), pad_to=2048, bucket=True)
+    args = (torch.from_numpy(ids).to(cuda), torch.from_numpy(vals).to(cuda), idx.num_docs, 20)
+    kw = dict(dir_col=torch.from_numpy(idx.dir_ids).to(cuda), dir_filter=torch.tensor(-1, dtype=torch.int32, device=cuda))
+    before = bm25_scatter.launches
+    (v1, i1), (v2, i2) = (tbm25.bm25_score_topk(*args, use_pallas=False, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert bm25_scatter.launches == before + 2
+    assert torch.equal(v1.view(torch.int32), v2.view(torch.int32)) and torch.equal(i1, i2)
+    rv, ri = tbm25.bm25_score_topk(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                                   dir_col=torch.from_numpy(idx.dir_ids), dir_filter=torch.tensor(-1, dtype=torch.int32))
+    np.testing.assert_array_equal(i1.cpu().numpy(), ri.numpy())
+    np.testing.assert_allclose(v1.cpu().numpy(), rv.numpy(), rtol=1e-6)

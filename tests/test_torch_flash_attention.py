@@ -1,0 +1,131 @@
+"""The port's prefill attention (K3) against the JAX package's.
+
+CPU: the port's plain version (what ``flash_attention`` runs for CPU tensors)
+against the stock Pallas TPU ``flash_attention`` under
+``pltpu.force_tpu_interpret_mode()``, called as
+``easyrag_tpu/models/decode.py::_prefill_layer`` calls it: K/V repeated over
+the query groups, heads transposed, left padding as segment ids. f32, real
+rows within atol 2e-5 (f32 sums in another order); every output, pad rows
+included, must be finite.
+
+CUDA (marked ``cuda``, skipped without a card): the hand-written kernel
+against the plain version in bf16 at S=1024. Each real row of one head (128
+values) must agree within 1.6e-2 of the row's largest ``|plain|``: the kernel
+rounds the unnormalised probabilities to bf16 and divides at the end, the
+plain version rounds the normalised ones (the bound of the K1 tests).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from easyrag_tpu_torch.ops import flash_attention as k3
+
+torch.set_num_threads(1)
+
+ROW_RTOL = 1.6e-2  # two bf16 roundings of the row's largest value
+
+
+def _inputs(B, S, nh, nkv, seed, hd=128):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, nh * hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, nkv * hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, nkv * hd)).astype(np.float32)
+    return q, k, v
+
+
+def _stock(q, k, v, mask, nh, nkv, scale, hd=128):
+    """The JAX package's call (decode.py:109-141), in interpret mode."""
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, flash_attention
+
+    B, S, _ = q.shape
+    qh = jnp.asarray(q).reshape(B, S, nh, hd)
+    kh = jnp.repeat(jnp.asarray(k).reshape(B, S, nkv, hd), nh // nkv, axis=2)
+    vh = jnp.repeat(jnp.asarray(v).reshape(B, S, nkv, hd), nh // nkv, axis=2)
+    seg = jnp.asarray(mask, jnp.int32)
+    with pltpu.force_tpu_interpret_mode():
+        out = flash_attention(
+            qh.transpose(0, 2, 1, 3), kh.transpose(0, 2, 1, 3), vh.transpose(0, 2, 1, 3),
+            segment_ids=SegmentIds(seg, seg), causal=True, sm_scale=scale,
+        )
+    return np.asarray(out.transpose(0, 2, 1, 3).reshape(B, S, nh * hd))
+
+
+@pytest.mark.parametrize("nh,nkv", [(2, 1), (2, 2)])
+def test_plain_matches_stock_kernel_left_padding(nh, nkv):
+    B, S = 2, 256
+    q, k, v = _inputs(B, S, nh, nkv, seed=nh + nkv)
+    lengths = np.array([S, S - 100])
+    mask = (np.arange(S)[None, :] >= (S - lengths)[:, None]).astype(np.int32)
+    scale = 128 ** -0.5
+    ref = _stock(q, k, v, mask, nh, nkv, scale)
+    got = k3.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy((S - lengths).astype(np.int32)), torch.full((B,), S, dtype=torch.int32), scale, nkv,
+    ).numpy()
+    real = mask.astype(bool)
+    assert np.abs(got[real] - ref[real]).max() <= 2e-5
+    assert np.isfinite(got).all()
+
+
+def test_plain_rows_without_keys_stay_finite():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 64, 4, 2, seed=3))
+    got = k3.flash_attention(q, k, v, torch.tensor([10, 0], dtype=torch.int32),
+                             torch.tensor([10, 0], dtype=torch.int32), 0.1, 2)
+    assert torch.isfinite(got).all()
+
+
+def test_wrapper_rejects_bad_shapes():
+    q = torch.zeros(1, 8, 256)
+    kv = torch.zeros(1, 8, 128)
+    r = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        k3.flash_attention(q, kv[:, :4], kv[:, :4], r, r, 1.0, 1)  # sequence lengths differ
+    with pytest.raises(ValueError):
+        k3.flash_attention(q, kv, kv, r, r, 1.0, 3)  # 128 is not 3 heads
+    with pytest.raises(ValueError):
+        k3.flash_attention(torch.zeros(1, 8, 192), kv, kv, r, r, 1.0, 2)  # 3 query heads on 2 KV heads
+    with pytest.raises(ValueError):
+        k3.flash_attention(q, kv, kv, torch.zeros(2, dtype=torch.int32), r, 1.0, 1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 256])
+def test_kernel_raises_at_other_head_dims(cuda, hd):
+    """The prefill hands every head_dim that is a multiple of 128 to this
+    wrapper; on the card a head dim the kernel does not take raises, and
+    never runs the plain version."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(1, 128, 2, 1, seed=5, hd=hd))
+    r = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = k3.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        k3.flash_attention(q, k, v, r, r + 128, hd ** -0.5, 1)
+    assert k3.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[1024, 1024], [1024, 41], [700, 0]])
+def test_kernel_matches_plain_on_card(cuda, lengths):
+    B, S, nh, nkv = 2, 1024, 8, 2
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(B, S, nh, nkv, seed=sum(lengths)))
+    kv_s = torch.tensor([S - n for n in lengths], dtype=torch.int32, device=cuda)
+    kv_e = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    before = k3.launches
+    got = k3.flash_attention(q, k, v, kv_s, kv_e, 128 ** -0.5, nkv)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    ref = k3.flash_attention_plain(q, k, v, kv_s, kv_e, 128 ** -0.5, nkv)
+    assert torch.isfinite(got.float()).all()  # pad rows included
+    real = torch.arange(S, device=cuda)[None, :] >= kv_s[:, None]
+    g, r = got[real].float().reshape(-1, 128), ref[real].float().reshape(-1, 128)
+    assert ((g - r).abs() <= ROW_RTOL * r.abs().amax(dim=1, keepdim=True)).all()

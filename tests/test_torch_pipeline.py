@@ -6,7 +6,10 @@ to the port through ``minicpm_from_jax``) and a recording stub LLM: both
 positions and texts), the same contexts, reranker scores within atol 1e-4,
 and send the same QA prompt. The queries cover the dual route, the dir filter
 and a query past the resident term budget (the overflow gather path, K5's
-plain version here). A subprocess with ``jax`` blocked runs the port alone.
+plain version here). With ``tpu.local_llm_answer`` both pipelines answer with
+their own on-device generator over one tiny saved Qwen2 checkpoint, and the
+answers must be equal. A subprocess with ``jax`` blocked runs the port alone,
+including a generator loaded from a bf16 checkpoint.
 """
 
 import asyncio
@@ -31,6 +34,7 @@ from easyrag_tpu.schema import QueryBundle
 from easyrag_tpu_torch.models.convert import minicpm_from_jax
 from easyrag_tpu_torch.models.layers import DecoderConfig
 from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+from test_torch_decode import tiny_causal_checkpoint  # noqa: F401  (a fixture)
 from test_torch_minicpm import ARCH, CharTok, tiny_params
 
 torch.set_num_threads(1)
@@ -115,10 +119,34 @@ def test_run_matches_jax_pipeline(tmp_path, offline_counter, side):
     assert got._dual_retrieve(QueryBundle(query_str=QUERIES[2]["query"])) is None
 
 
+def test_local_llm_answer_matches_jax_pipeline(tmp_path, offline_counter, tiny_causal_checkpoint):
+    from easyrag_tpu.generation import BatchingLocalLLM
+
+    data_path = make_corpus(tmp_path / "corpus")
+    cfg = EasyRAGConfig(
+        data_path=data_path, chunk_size=64, chunk_overlap=10, f_topk_2=3, f_topk_3=0, use_reranker=0,
+        local_llm_name=tiny_causal_checkpoint, cache_path=str(tmp_path / "cache"),
+        tpu=TPUConfig(use_pallas=False, local_llm_answer=True, local_llm_quant="", local_llm_max_new=4,
+                      local_llm_gen_batch=2, local_llm_spec=3),
+    )
+    ref = JaxPipeline(cfg)
+    got = EasyRAGPipeline(cfg)
+    assert isinstance(got.llm, BatchingLocalLLM) and got.local_llm.spec_tokens == 3
+    for n, q in enumerate(QUERIES[:2], start=1):
+        a = asyncio.run(ref.run(dict(q)))
+        b = asyncio.run(got.run(dict(q)))
+        assert b["contexts"] == a["contexts"]
+        assert b["answer"] == a["answer"] and b["answer"]
+        assert got.llm.dispatches == n  # one batched generation per query
+    assert got.local_llm_generate("w3 w1 w4") == ref.local_llm_generate("w3 w1 w4")
+
+
 def test_unported_options_raise(tmp_path, offline_counter):
     data_path = make_corpus(tmp_path / "corpus")
     for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1}, {"split_type": 1}, {"hyde": True},
-               {"index_artifact_path": str(tmp_path / "a")}, {"use_reranker": 2}):
+               {"index_artifact_path": str(tmp_path / "a")}, {"use_reranker": 2},
+               {"local_llm_name": "m", "tpu": TPUConfig(local_llm_answer=True, local_llm_continuous=True)},
+               {"local_llm_name": "m", "tpu": TPUConfig(local_llm_quant="w4a8")}):
         with pytest.raises(NotImplementedError):
             EasyRAGPipeline(EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}))
 
@@ -177,9 +205,37 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
         splitter=SentenceSplitter(64, 10, token_counter=approx_token_count, sentence_splitter=lambda t: [t]),
     )
     out = [asyncio.run(pipe.run(dict(q))) for q in QUERIES]
+
+    # the generator: a tiny bf16 checkpoint (as real shards are) read back
+    # as int4 with an int8 embedding table, fused, and one greedy generate
+    from safetensors.torch import save_file
+    from easyrag_tpu_torch.models import decode
+    from easyrag_tpu_torch.models.hf_loader import load_decoder_params
+    from easyrag_tpu_torch.models.quant import fuse_decode_tree
+    ckpt = os.path.join(root, "ckpt")
+    os.makedirs(ckpt)
+    gen = torch.Generator().manual_seed(0)
+    shapes = {{"embed_tokens.weight": (64, 256), "norm.weight": (256,), "lm_head.weight": (64, 256)}}
+    for i in range(2):
+        for n, shape in (("self_attn.q_proj.weight", (256, 256)), ("self_attn.q_proj.bias", (256,)),
+                         ("self_attn.k_proj.weight", (128, 256)), ("self_attn.k_proj.bias", (128,)),
+                         ("self_attn.v_proj.weight", (128, 256)), ("self_attn.v_proj.bias", (128,)),
+                         ("self_attn.o_proj.weight", (256, 256)), ("mlp.gate_proj.weight", (512, 256)),
+                         ("mlp.up_proj.weight", (512, 256)), ("mlp.down_proj.weight", (256, 512)),
+                         ("input_layernorm.weight", (256,)), ("post_attention_layernorm.weight", (256,))):
+            shapes[f"model.layers.{{i}}.{{n}}"] = shape
+    save_file({{n: (torch.randn(s, generator=gen) * 0.05).to(torch.bfloat16) for n, s in shapes.items()}},
+              os.path.join(ckpt, "model.safetensors"))
+    cfg = DecoderConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=2, num_key_value_heads=1, attention_bias=True)
+    params = fuse_decode_tree(load_decoder_params(ckpt, 2, dtype=torch.float32, quant="int4"))
+    ids = torch.tensor([[0, 0, 5, 7, 9, 11, 3, 2]], dtype=torch.int32)
+    toks = decode.generate_greedy(cfg, params, ids, (ids > 0).to(torch.int32), torch.tensor([63], dtype=torch.int32), 4)
+
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib"))
     print(json.dumps({{"contexts": [len(o["contexts"]) for o in out], "answers": [o["answer"] for o in out],
-                      "jax_modules": loaded}}))
+                      "fused": sorted(params["layers"][0]["attn"]) + sorted(params["layers"][0]["mlp"]),
+                      "embed": sorted(params["embed"]), "tokens": toks.tolist(), "jax_modules": loaded}}))
     """
 )
 
@@ -196,5 +252,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["jax_modules"] == []
+    assert result["fused"] == ["o", "qkv", "down", "gateup"] and result["embed"] == ["scale", "w_q"]
+    assert len(result["tokens"][0]) == 4 and all(0 <= t < 64 for t in result["tokens"][0])
     assert result["answers"] == ["answer"] * len(QUERIES)
     assert all(0 < n <= 3 for n in result["contexts"])
