@@ -43,10 +43,32 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    runs and read just after; K2 and K3 must run on every answer. Then the
    three prompts in one batched dispatch, the share of its tokens equal to
    plain greedy decoding, a 2-layer cut of the same tree on the card against
-   the CPU in f32, and the peak device memory.
+   the CPU in f32, and the peak device memory;
+6. the Gemma2 cost-wise reranker (bge-reranker-v2.5-gemma2-lightweight at
+   its Gemma2-9B body's full width and depth: 42 layers, hidden 3584, 16x256
+   heads on 8, softcap 50, vocab 256,000; random bf16 weights from a seeded
+   ``torch.Generator``, heads 8..42): K4 (``flash_softcap_attention``)
+   against its plain version at the reranker's shapes (B=32, S=1152 and
+   S=640, B=4, S=136 ragged, right padded); then phase 3's three queries
+   through ``EasyRAGPipeline.run`` with this reranker behind ``LLMRerank``
+   (cutoff 28, compression at layer 24 by 2, 32-pair batches). Kernel launch
+   counts are reset just before the three runs and read just after; K4 must
+   run 28 times per 32-pair batch. Then a 2-layer cut (compression at 1,
+   cutoff 2) on the card against the CPU in f32 on eight pairs drawn from the
+   seed, each score within a tenth of the score's scale, and the peak
+   device memory.
 
-Prints its total seconds, one JSON line of kernel results (K2's times are
-gateup's at R=1, K3's at B=1, S=7680), the ``nvidia-smi`` line, and last
+Every kernel's entry in the JSON line carries its bound at the timed shape
+(the larger of its operations over the card's peak for their type and its
+bytes, each input read once and each output written once, over 3.35 TB/s)
+and, where one PyTorch call computes the same function, that call's time
+(``scaled_dot_product_attention`` for K1 and K3, ``index_add_`` for K5,
+``flex_attention`` compiled with the softcap as its ``score_mod`` for K4;
+none unpacks int4 for K2).
+
+Prints its total seconds, one JSON line of kernel results (K1's and K5's
+times at the pipeline's shapes, K2's gateup's at R=1, K3's at B=1, S=7680,
+K4's at B=32, S=1152), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -75,6 +97,14 @@ MAX_LENGTH = 1024
 K1_ROW_RTOL = 1.6e-2
 K5_RTOL = 1e-6
 RERANK_REL_TOL = 5e-2  # bf16 card vs f32 CPU, 8 layers, relative L2 of the score vector
+# Gemma2 reranker, bf16 card vs f32 CPU, 2 layers, per pair:
+# |card - cpu| <= GEMMA_PAIR_TOL * the score's scale, ||head|| * rms(1 + final
+# norm): the spread of head . norm(x) over hidden states x, which the bf16
+# rounding of the pooled hidden projects onto whatever the pair's score.
+# Readings on the H100: errors of 0.002-0.091 at a scale of ~2.39 (0.038 of
+# it at most)
+GEMMA_PAIR_TOL = 0.1
+GEMMA_CPU_PAIRS = 8
 GEN_REL_TOL = 5e-2  # bf16 card vs f32 CPU, 2 generator layers, relative L2 of the last-position logits
 # K3 vs plain, per 128-wide head row: K1's rule (the same rounding of the
 # unnormalised probabilities)
@@ -102,6 +132,22 @@ RERANKER = dict(
     num_attention_heads=36, num_key_value_heads=36, scale_emb=12.0, scale_depth=1.4,
     dim_model_base=256.0,
 )
+# bge-reranker-v2.5-gemma2-lightweight's body: Google's gemma-2-9b config.json
+# (tools/bench_gemma9b.py:122-132)
+GEMMA2_9B = dict(
+    vocab_size=256_000, hidden_size=3584, intermediate_size=14_336, num_hidden_layers=42,
+    num_attention_heads=16, num_key_value_heads=8, head_dim=256, rms_norm_eps=1e-6, rope_theta=10000.0,
+    gemma=True, attn_logit_softcapping=50.0, query_pre_attn_scalar=256.0,
+)
+# the reference's operating point: cutoff 28, compression (24, 40) by 2,
+# heads from layer 8, 32-pair batches
+GEMMA_CUTOFF, GEMMA_COMPRESS, GEMMA_START = 28, (24, 40), 8
+# K4 vs plain, per 256-wide head row: K1's rule (the same rounding of the
+# unnormalised probabilities)
+K4_ROW_RTOL = 1.6e-2
+# the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
+# outside them, HBM bandwidth
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -122,6 +168,21 @@ def run_text(cmd, timeout=120) -> str:
     if proc.returncode != 0:
         raise SmokeFailure(f"{cmd[0]} failed: {proc.stderr.strip()[-500:]}")
     return proc.stdout.strip()
+
+
+def bound(ops: float, nbytes: float, peak: float = PEAK_BF16):
+    """``(ms, "bytes" or "operations")``: the least time the card could take
+    for ``ops`` operations at ``peak`` and ``nbytes`` at HBM bandwidth."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def causal_pairs(np, S: int, start, end) -> int:
+    """(query, key) pairs an attention computes: for every query row ``i`` of
+    every batch row, the keys ``j <= i`` inside ``[start, end)``."""
+    i = np.arange(S)[None, :]
+    lo, hi = np.asarray(start)[:, None], np.asarray(end)[:, None]
+    return int(np.clip(np.minimum(i, hi - 1) - lo + 1, 0, None).sum())
 
 
 def cuda_ms(torch, fn, reps=10, warmup=2) -> float:
@@ -196,7 +257,7 @@ class StubLLM:
         self.prompts = []
 
     async def acomplete(self, prompt):
-        from easyrag_tpu.generation import CompletionResponse
+        from easyrag_tpu_torch.generation import CompletionResponse
 
         self.prompts.append(prompt)
         return CompletionResponse(text="无法确定")
@@ -240,7 +301,7 @@ def phase_env(torch):
     return smi
 
 
-KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention")
+KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention", "flash_softcap")
 
 
 def phase_build():
@@ -249,7 +310,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    say(f"kernel build: {time.perf_counter() - t0:.2f} s (four nvcc processes at once)")
+    say(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(KERNELS)} nvcc processes at once)")
     for name in KERNELS:
         log = _build.build_logs.get(name, "").splitlines()
         usage = [ln.split("info    :")[-1].strip() for ln in log if "registers" in ln or "spill" in ln]
@@ -355,6 +416,24 @@ def k3_compare(torch, k3, args):
     return float(diff.max()), row_rel
 
 
+def sdpa_ms(torch, q, k, v, nh, nkv, kv_s, kv_e, scale, cos=None, sin=None):
+    """Median ms of one ``scaled_dot_product_attention`` call computing what
+    K1/K3 compute on these inputs: heads moved to dim 1 (and RoPE applied)
+    beforehand, the causal-and-key-range mask as a boolean ``[B, 1, S, S]``,
+    ``enable_gqa`` for grouped heads. The port never calls it."""
+    from easyrag_tpu_torch.ops.flash64 import apply_rope, key_keep_mask
+
+    B, S, _ = q.shape
+    hd = k.shape[-1] // nkv
+    qh, kh, vh = (t.reshape(B, S, -1, hd) for t in (q, k, v))
+    if cos is not None:
+        qh, kh = apply_rope(qh, cos[None], sin[None]), apply_rope(kh, cos[None], sin[None])
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qh, kh, vh))
+    mask = key_keep_mask(kv_s, kv_e, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=scale, enable_gqa=nh != nkv), reps=5)
+
+
 def cold_weights(w, scale):
     """Calls that cycle through enough copies of ``(w, scale)`` to read
     ``L2_FLUSH_BYTES`` between two uses of one copy: in a decode step every
@@ -363,10 +442,11 @@ def cold_weights(w, scale):
     return itertools.cycle(copies), len(copies)
 
 
-def phase_new_kernels(torch, k2, k3):
-    """K2 and K3 against their plain versions at the generator's shapes."""
+def phase_new_kernels(torch, np, k2, k3):
+    """K2 and K3 against their plain versions at the generator's shapes;
+    K2's bound at gateup R=1 and K3's bound and SDPA time at B=1, S=7680."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    errs, times = {"K2": 0.0, "K3": 0.0}, {}
+    errs, times, extra = {"K2": 0.0, "K3": 0.0}, {}, {}
     for name, (n_out, half) in K2_SHAPES.items():
         x32, w, scale = k2_case(torch, gen, n_out, half, 32)
         cold, n_copies = cold_weights(w, scale)
@@ -379,6 +459,9 @@ def phase_new_kernels(torch, k2, k3):
             ms = graph_ms(torch, lambda: k2.int4_matvec(x, *next(cold)), n=max(50, n_copies))
             plain = graph_ms(torch, lambda: k2.int4_matvec_plain(x, *next(cold)), n=10)
             times[(name, rows)] = (ms, plain)
+            if (name, rows) == ("gateup", 1):  # the reported shape; no one PyTorch call unpacks int4
+                extra["K2"] = (*bound(2 * rows * n_out * 2 * half, w.nbytes + scale.nbytes + x.nbytes + rows * n_out * 2),
+                               None)
             gbs = n_out * half / ms / 1e6
             say(f"K2 {name} [{n_out}, {half}] R={rows}: max_abs_err {err:.3e} ({ratio:.3f} of the bound); "
                 f"kernel {ms:.4f} ms ({gbs:.0f} GB/s of packed weights), plain {plain:.4f} ms")
@@ -392,10 +475,15 @@ def phase_new_kernels(torch, k2, k3):
         ms = cuda_ms(torch, lambda: k3.flash_attention(*args), reps=5)
         plain = cuda_ms(torch, lambda: k3.flash_attention_plain(*args), reps=3, warmup=1)
         times[("K3", B, S)] = (ms, plain)
-        flop = sum(4 * 28 * 128 * n * (n + 1) / 2 for n in lengths)  # causal QK^T + PV over real rows
+        q, k, v, kv_s, kv_e, scale, nkv = args
+        # causal QK^T + PV over the pairs the key ranges leave
+        flop = 4 * 28 * 128 * causal_pairs(np, S, kv_s.cpu().numpy(), kv_e.cpu().numpy())
+        lib = sdpa_ms(torch, q, k, v, 28, nkv, kv_s, kv_e, scale)
+        if B == 1:
+            extra["K3"] = (*bound(flop, 2 * q.nbytes + k.nbytes + v.nbytes), lib)
         say(f"K3 B={B} S={S} lengths {lengths}: max_abs_err {err:.3e} (row-relative {row_rel:.3e}), all finite; "
-            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms")
-    return errs, times
+            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, SDPA {lib:.3f} ms")
+    return errs, times, extra
 
 
 def phase_kernels(torch, f64, k5):
@@ -426,7 +514,7 @@ def host_route_check(np, pipeline, query, dir_name, k):
     """The content route's device top-k against the float64 host ranking:
     the true score at every rank must equal the host's sorted score at that
     rank (rel 1e-5), so indices may differ only among tied scores."""
-    from easyrag_tpu.schema import QueryBundle
+    from easyrag_tpu_torch.schema import QueryBundle
 
     sr = pipeline.sparse_retriever
     pipeline.filter_dict = sr.filter_dict = {"dir": dir_name} if dir_name else None
@@ -475,15 +563,15 @@ def make_queries(np, rng, pipeline):
 
 def phase_pipeline(torch, np, f64, k5, tmp):
     say("== phase 3: EasyRAGPipeline.run, default config, 20k chunks, full-width reranker")
-    from easyrag_tpu.config import load_config
-    from easyrag_tpu.corpus.splitter import SentenceSplitter
-    from easyrag_tpu.corpus.tokenizer import approx_token_count
-    from easyrag_tpu.rerankers import LLMRerank
-    from easyrag_tpu.schema import QueryBundle
-    from easyrag_tpu.utils import events
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
     from easyrag_tpu_torch.models.layers import DecoderConfig
     from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
     from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+    from easyrag_tpu_torch.rerankers import LLMRerank
+    from easyrag_tpu_torch.schema import QueryBundle
+    from easyrag_tpu_torch.utils import events
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -603,7 +691,9 @@ def phase_pipeline(torch, np, f64, k5, tmp):
     return pipeline, queries, launches, mask, len(long_ids)
 
 
-def phase_main_shapes(torch, f64, k5, mask, P):
+def phase_main_shapes(torch, np, f64, k5, mask, P):
+    """K1 and K5 against their plain versions at the pipeline's shapes, with
+    their bounds and the time of one PyTorch call computing the same."""
     say("== phase 4: kernels vs plain versions at the pipeline's shapes")
     from easyrag_tpu_torch.models.minicpm import key_ranges
 
@@ -614,15 +704,24 @@ def phase_main_shapes(torch, f64, k5, mask, P):
     err, row_rel = k1_compare(torch, f64, args)
     ms = cuda_ms(torch, lambda: f64.flash64_attention(*args))
     plain = cuda_ms(torch, lambda: f64.flash64_attention_plain(*args), reps=3, warmup=1)
+    q, k, v, kv_s, kv_e, scale, cos, sin = args
+    lib = sdpa_ms(torch, q, k, v, 36, 36, kv_s, kv_e, scale, cos, sin)
+    b1 = bound(4 * 36 * 64 * causal_pairs(np, S, start, end), 4 * q.nbytes + cos.nbytes + sin.nbytes)
     say(f"K1 B={B} S={S} H=36 rope pad=right: max_abs_err {err:.3e} (row-relative {row_rel:.3e}); "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    timings = {"K1": (ms, plain, err)}
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA {lib:.3f} ms; bound {b1[0]:.4f} ms ({b1[1]})")
+    timings = {"K1": (ms, plain, err, *b1, lib)}
     args5 = k5_case(torch, 1, P, N_DOCS, gen)
     err5 = k5_compare(torch, k5, args5)
     ms5 = cuda_ms(torch, lambda: k5.bm25_scores(*args5))
     plain5 = cuda_ms(torch, lambda: k5.bm25_scores_plain(*args5))
-    say(f"K5 B=1 P={P} N={N_DOCS}: max_abs_err {err5:.3e}; kernel {ms5:.3f} ms, plain {plain5:.3f} ms")
-    timings["K5"] = (ms5, plain5, err5)
+    ids, vals, _ = args5
+    flat_ids, flat_vals = ids.reshape(-1).long(), vals.reshape(-1)
+    acc = torch.zeros(N_DOCS + 1, device=ids.device)  # the sentinel id N lands in the extra slot
+    lib5 = cuda_ms(torch, lambda: acc.index_add_(0, flat_ids, flat_vals))
+    b5 = bound(P, ids.nbytes + vals.nbytes + N_DOCS * 4, PEAK_F32)  # one f32 add per posting
+    say(f"K5 B=1 P={P} N={N_DOCS}: max_abs_err {err5:.3e}; kernel {ms5:.3f} ms, plain {plain5:.3f} ms, "
+        f"index_add_ {lib5:.3f} ms; bound {b5[0]:.4f} ms ({b5[1]})")
+    timings["K5"] = (ms5, plain5, err5, *b5, lib5)
     return timings
 
 
@@ -747,9 +846,9 @@ def generator_vs_cpu(torch, np, cfg, params):
 
 def phase_generator(torch, np, pipeline, queries, k1, k2, k3, k5):
     say("== phase 5: the on-device answer generator (Qwen2-7B-Instruct, int4, spec 7) in the pipeline")
-    from easyrag_tpu.generation import BatchingLocalLLM
-    from easyrag_tpu.utils import events
+    from easyrag_tpu_torch.generation import BatchingLocalLLM
     from easyrag_tpu_torch.models.decode import TorchCausalLM
+    from easyrag_tpu_torch.utils import events
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -842,6 +941,206 @@ def phase_generator(torch, np, pipeline, queries, k1, k2, k3, k5):
     return launches, rel
 
 
+def k4_case(torch, gen, B, S, lengths):
+    """Gemma2-shaped K4 inputs: 16 query heads of 256 on 8 KV heads, each row
+    right-padded to its own length with zero vectors (as after a
+    compression); q scaled so the largest logits pass the softcap's knee."""
+    dev = torch.device("cuda")
+    q = torch.randn(B, S, 16 * 256, generator=gen, device=dev) * 16.0
+    k, v = (torch.randn(B, S, 8 * 256, generator=gen, device=dev) for _ in range(2))
+    real = torch.arange(S, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+    q, k, v = (torch.where(real[..., None], t, 0.0).to(torch.bfloat16) for t in (q, k, v))
+    return (q, k, v, 16, 8, 1 / 16, GEMMA2_9B["attn_logit_softcapping"]), real
+
+
+def k4_cases(torch, np, seed):
+    """Phase 6's K4 cases, from ``seed``: ``(B, S, lengths, args, real)`` at
+    B=32, S=1152 (layers 0-23) and S=640 (layers 24-27, after the
+    compression), rows of their own lengths with one full and one 40 long,
+    and at B=4, S=136 ragged."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    for B, S, lengths in ((32, 1152, None), (32, 640, None), (4, 136, [136, 93, 57, 8])):
+        if lengths is None:
+            lengths = rng.integers(S * 6 // 10, S + 1, size=B).tolist()
+            lengths[0], lengths[-1] = S, 40
+        yield (B, S, lengths, *k4_case(torch, gen, B, S, lengths))
+
+
+def k4_row_check(torch, got, ref, real, what):
+    """``what``'s output against K4's plain version: every value finite, pad
+    rows included, and the per-head-row bound on real rows."""
+    check(bool(torch.isfinite(got.float()).all()), f"{what} output has non-finite values (pad rows included)")
+    g, r = (t.float()[real].reshape(-1, 256) for t in (got, ref))
+    diff = (g - r).abs()
+    bound_ = r.abs().amax(dim=1, keepdim=True)
+    row_rel = float((diff / bound_.clamp_min(1e-30)).max())
+    check(bool((diff <= K4_ROW_RTOL * bound_).all()), f"{what} disagrees with K4's plain version ({row_rel:.3e} of the row)")
+    return float(diff.max()), row_rel
+
+
+def k4_compare(torch, k4, args, real):
+    got = k4.flash_softcap_attention(*args)
+    ref = k4.flash_softcap_attention_plain(*args)
+    torch.cuda.synchronize()
+    return k4_row_check(torch, got, ref, real, "K4")
+
+
+def flex_softcap_ms(torch, k4, args, real):
+    """Median ms of one compiled ``flex_attention`` call computing what K4
+    computes on these inputs: heads moved to dim 1 beforehand, scale, then
+    the softcap as its ``score_mod``, then a causal block mask, with
+    ``enable_gqa``. Its output is first held to K4's bound against the plain
+    version. The port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    q, k, v, nh, _, scale, cap = args
+    B, S, _ = q.shape
+    qh, kh, vh = (t.reshape(B, S, -1, 256).transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = create_block_mask(lambda b, h, qi, ki: qi >= ki, None, None, S, S, device="cuda")
+    flex = torch.compile(flex_attention)
+
+    def call():
+        return flex(qh, kh, vh, score_mod=lambda s, b, h, qi, ki: torch.tanh(s / cap) * cap, block_mask=mask,
+                    scale=scale, enable_gqa=True)
+
+    got = call().transpose(1, 2).reshape(B, S, nh * 256)
+    k4_row_check(torch, got, k4.flash_softcap_attention_plain(*args), real, "flex_attention")
+    return cuda_ms(torch, call, reps=5)
+
+
+def gemma_vs_cpu(torch, np, scorer, pairs):
+    """A 2-layer cut of the card's Gemma tree (compression at 1, cutoff 2;
+    head 2 takes head 8's weights) in bf16 on the card against the same cut
+    in f32 on the CPU: each pair's error within ``GEMMA_PAIR_TOL`` of the
+    score's scale, and the score vector's relative L2."""
+    from easyrag_tpu_torch.models.gemma import GemmaCostWiseReranker
+
+    head = scorer.heads[GEMMA_START].clone()
+    saved = scorer.cutoff_layer, scorer.compress_layer, scorer.heads[2].clone()
+    scorer.heads[2] = head
+    scorer.cutoff_layer, scorer.compress_layer = 2, (1,)
+    card, _ = scorer.score_pairs(pairs)
+    scorer.cutoff_layer, scorer.compress_layer = saved[:2]
+    scorer.heads[2] = saved[2]
+    cut = dataclasses.replace(scorer.cfg, num_hidden_layers=2)
+    cpu = GemmaCostWiseReranker(cut, scorer.tokenizer, cutoff_layer=2, compress_layer=(1,), compress_ratio=2,
+                                max_length=MAX_LENGTH, device="cpu", dtype=torch.float32)
+    state = {k: v for k, v in scorer.state_dict().items() if not k.startswith("layers.") or int(k.split(".")[1]) < 2}
+    state["heads"] = torch.stack([torch.zeros_like(head), torch.zeros_like(head), head])
+    cpu.load_state_dict({k: v.float().cpu() for k, v in state.items()})
+    ref, _ = cpu.score_pairs(pairs)
+    rel = float(np.linalg.norm(card - ref) / np.linalg.norm(ref))
+    gain = 1.0 + cpu.final_norm.float()
+    scale = float(head.float().norm() * gain.norm()) / gain.numel() ** 0.5
+    err = np.abs(card - ref)
+    say(f"Gemma reranker, 2 layers (compression at 1), card bf16 vs CPU f32: {card.tolist()} vs {ref.tolist()}; "
+        f"largest error {err.max():.3e} = {err.max() / scale:.3e} of the score's scale {scale:.3e} "
+        f"(bound {GEMMA_PAIR_TOL}); rel L2 {rel:.3e} (bound {RERANK_REL_TOL})")
+    check(np.isfinite(card).all() and bool((err <= GEMMA_PAIR_TOL * scale).all()),
+          "the Gemma reranker disagrees with the CPU reference on a pair")
+    check(rel <= RERANK_REL_TOL, "the Gemma reranker's scores disagree with the CPU reference")
+    return rel
+
+
+def phase_gemma(torch, np, pipeline, queries, mods):
+    say("== phase 6: the Gemma2 cost-wise reranker (Gemma2-9B body, K4) in the pipeline")
+    from easyrag_tpu_torch.models.gemma import GemmaCostWiseReranker
+    from easyrag_tpu_torch.models.layers import DecoderConfig
+    from easyrag_tpu_torch.rerankers import LLMRerank
+    from easyrag_tpu_torch.utils import events
+
+    k4 = mods["K4"]
+    # the MiniCPM reranker and the generator are no longer needed
+    pipeline.llm, pipeline.reranker = StubLLM(), None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    err, k4_times = 0.0, {}
+    for B, S, lengths, args, real in k4_cases(torch, np, SEED + 6):
+        e, row_rel = k4_compare(torch, k4, args, real)
+        err = max(err, e)
+        ms = cuda_ms(torch, lambda: k4.flash_softcap_attention(*args))
+        plain = cuda_ms(torch, lambda: k4.flash_softcap_attention_plain(*args), reps=3, warmup=1)
+        library = flex_softcap_ms(torch, k4, args, real) if (B, S) == (32, 1152) else None
+        q, k, v = args[:3]
+        # causal QK^T + PV of the real rows only, as K1's and K3's bounds count
+        # (right padding: a real row's keys are all real)
+        flop = 4 * 16 * 256 * sum(n * (n + 1) // 2 for n in lengths)
+        b4 = bound(flop, 2 * q.nbytes + k.nbytes + v.nbytes)
+        k4_times[(B, S)] = (ms, plain, *b4, library)
+        lib = f"; flex_attention {library:.3f} ms" if library is not None else ""
+        say(f"K4 B={B} S={S} 16x256 on 8, softcap 50: max_abs_err {e:.3e} (row-relative {row_rel:.3e}), all finite; "
+            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms{lib}; "
+            f"bound {b4[0]:.4f} ms ({b4[1]})")
+        del args, real, q, k, v
+    torch.cuda.empty_cache()
+
+    cfg = DecoderConfig(**GEMMA2_9B)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    scorer = GemmaCostWiseReranker(
+        cfg, CharTokenizer(cfg.vocab_size), cutoff_layer=GEMMA_CUTOFF, compress_layer=GEMMA_COMPRESS,
+        compress_ratio=2, max_length=MAX_LENGTH, device=dev, dtype=torch.bfloat16,
+    ).init_random_(torch.Generator(device=dev).manual_seed(SEED + 7), start_layer=GEMMA_START)
+    torch.cuda.synchronize()
+    n_param = sum(p.numel() for p in scorer.parameters())
+    say(f"Gemma reranker: {n_param / 1e9:.3f} B parameters, "
+        f"{sum(p.numel() * p.element_size() for p in scorer.parameters()) / 2**30:.2f} GiB on the card, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    pcfg = pipeline.config
+    pipeline.reranker = LLMRerank(scorer, top_n=pcfg.r_topk, embed_bs=pcfg.r_embed_bs, embed_type=pcfg.r_embed_type,
+                                  use_efficient=pcfg.r_use_efficient)
+    t0 = time.perf_counter()
+    asyncio.run(pipeline.run(dict(queries[0][1])))  # warm-up, not counted
+    torch.cuda.synchronize()
+    say(f"warm-up query: {time.perf_counter() - t0:.1f} s")
+
+    batches, stages = [], []
+
+    def listen(kind, payload):
+        if kind == "reranking" and "batch" in payload:
+            batches[-1].append(payload["pairs"])
+        elif kind == "timing":
+            stages.append((payload["name"], payload["seconds"] * 1e3))
+
+    unsubscribe = events.on(listen)
+    results = []
+    for mod in mods.values():
+        mod.launches = 0
+    for name, q, _ in queries:
+        batches.append([])
+        k4_0 = k4.launches
+        t = time.perf_counter()
+        out = asyncio.run(pipeline.run(dict(q)))
+        torch.cuda.synchronize()
+        results.append((name, out, (time.perf_counter() - t) * 1e3, k4.launches - k4_0, dict(stages)))
+        stages.clear()
+    launches = {key: mod.launches for key, mod in mods.items()}
+    unsubscribe()
+    for (name, out, ms, dk4, st), sizes in zip(results, batches, strict=True):
+        split = ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
+        say(f"query {name!r}: {sum(sizes)} pairs in {len(sizes)} batches {sizes}; run {ms:.1f} ms ({split}); "
+            f"rerank {st['rerank'] / len(sizes):.1f} ms per batch; K4 launches {dk4}; "
+            f"top-6 {[n.node.idx for n in out['nodes']]}")
+        check(dk4 == GEMMA_CUTOFF * len(sizes), f"query {name!r}: K4 ran {dk4} times for {len(sizes)} batches")
+        check(len(out["nodes"]) == pcfg.r_topk and len(out["contexts"]) == pcfg.r_topk, f"query {name!r}: wrong result size")
+        check(all(np.isfinite(n.score) for n in out["nodes"]), f"query {name!r}: non-finite rerank score")
+        check(out["answer"] == "无法确定", f"query {name!r}: unexpected answer")
+    check(launches["K1"] == 0, "K1 ran with the Gemma reranker")
+    say(f"launches over the three queries: {launches}")
+
+    # pairs drawn from the seed: the two short queries against random nodes
+    # (the long one would pad every row to 640 tokens for the CPU run)
+    nodes = pipeline.nodes
+    rng = np.random.default_rng(SEED + 8)
+    picks = rng.choice(len(nodes), size=GEMMA_CPU_PAIRS, replace=False)
+    pairs = [(queries[i % 2][1]["query"], nodes[j].text[:120]) for i, j in enumerate(picks)]
+    rel = gemma_vs_cpu(torch, np, scorer, pairs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"peak device memory in phase 6: {peak:.2f} GiB")
+    return launches, err, k4_times, rel
+
+
 def main() -> int:
     try:
         import torch
@@ -860,9 +1159,13 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 1
+    # torch.compile's caches (the flex_attention yardstick) stay in the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(REPO, "build", sub))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from easyrag_tpu_torch.ops import flash_attention as k3
+    from easyrag_tpu_torch.ops import flash_softcap as k4
     from easyrag_tpu_torch.ops import int4_matvec as k2
 
     t_start = time.perf_counter()
@@ -870,31 +1173,36 @@ def main() -> int:
         smi = phase_env(torch)
         phase_build()
         errs = phase_kernels(torch, f64, k5)
-        new_errs, new_times = phase_new_kernels(torch, k2, k3)
+        new_errs, new_times, extra = phase_new_kernels(torch, np, k2, k3)
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
             pipeline, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, tmp)
-            timings = phase_main_shapes(torch, f64, k5, mask, P)
+            timings = phase_main_shapes(torch, np, f64, k5, mask, P)
             gen_launches, _ = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
-        check(not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules), "something imported JAX")
+            mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5}
+            gemma_launches, k4_err, k4_times, _ = phase_gemma(torch, np, pipeline, queries, mods)
+        loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
+        check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    k2_ms, k2_plain = new_times[("gateup", 1)]
-    k3_ms, k3_plain = new_times[("K3", 1, 7680)]
+    def entry(name, source, replaces, n, err, ms, plain, bound_ms, bound_by, library_ms):
+        return {"name": name, "route": "cuda", "source": f"easyrag_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    k1, k5t = timings["K1"], timings["K5"]
     kernels = [
-        {"name": "flash64_attention", "route": "cuda", "source": "easyrag_tpu_torch/csrc/flash64.cu",
-         "replaces": "easyrag_tpu/ops/flash64.py:198", "launches": launches["K1"],
-         "max_abs_err": max(errs["K1"], timings["K1"][2]), "ms": timings["K1"][0], "plain_ms": timings["K1"][1]},
-        {"name": "bm25_scores", "route": "cuda", "source": "easyrag_tpu_torch/csrc/bm25_scatter.cu",
-         "replaces": "easyrag_tpu/ops/bm25_pallas.py:88", "launches": launches["K5"],
-         "max_abs_err": max(errs["K5"], timings["K5"][2]), "ms": timings["K5"][0], "plain_ms": timings["K5"][1]},
-        {"name": "int4_matvec", "route": "cuda", "source": "easyrag_tpu_torch/csrc/int4_matvec.cu",
-         "replaces": "easyrag_tpu/ops/int4_matvec.py:112", "launches": gen_launches["K2"],
-         "max_abs_err": new_errs["K2"], "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "flash_attention", "route": "cuda", "source": "easyrag_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "easyrag_tpu/models/decode.py:130", "launches": gen_launches["K3"],
-         "max_abs_err": new_errs["K3"], "ms": k3_ms, "plain_ms": k3_plain},
+        entry("flash64_attention", "flash64.cu", "easyrag_tpu/ops/flash64.py:198", launches["K1"],
+              max(errs["K1"], k1[2]), k1[0], k1[1], *k1[3:]),
+        entry("bm25_scores", "bm25_scatter.cu", "easyrag_tpu/ops/bm25_pallas.py:88", launches["K5"],
+              max(errs["K5"], k5t[2]), k5t[0], k5t[1], *k5t[3:]),
+        entry("int4_matvec", "int4_matvec.cu", "easyrag_tpu/ops/int4_matvec.py:112", gen_launches["K2"],
+              new_errs["K2"], *new_times[("gateup", 1)], *extra["K2"]),
+        entry("flash_attention", "flash_attention.cu", "easyrag_tpu/models/decode.py:130", gen_launches["K3"],
+              new_errs["K3"], *new_times[("K3", 1, 7680)], *extra["K3"]),
+        entry("flash_softcap_attention", "flash_softcap.cu", "easyrag_tpu/ops/flash_softcap.py:136",
+              gemma_launches["K4"], k4_err, *k4_times[(32, 1152)]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

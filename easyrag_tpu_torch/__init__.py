@@ -3,17 +3,23 @@ NVIDIA H100.
 
 The default RAG path (``EasyRAGPipeline.run(query)`` on
 ``configs/easyrag.yaml``): the dual BM25 route resident on the card, content
-fusion, the MiniCPM layerwise reranker and the QA prompt. Host code that has
-no JAX dependency is shared with ``easyrag_tpu`` (config, schema, corpus,
-templates, ``LLMRerank``, generation); everything that touched JAX there has a
-torch counterpart here. The two TPU kernels on this path are hand-written CUDA
-kernels under ``csrc/`` (built with ``nvcc`` at first use, see ``_build.py``):
+fusion, a layerwise reranker (MiniCPM, or the Gemma2 cost-wise reranker with
+token compression) and the QA prompt, answered by an injected LLM or the
+on-device Qwen2 generator. The package keeps its own copy of the host code it
+needs (config, schema, corpus, templates, ``LLMRerank``, generation, event
+hooks) and imports nothing of ``easyrag_tpu`` and nothing of ``jax``. Every
+TPU kernel on these paths is a hand-written CUDA kernel under ``csrc/``
+(built with ``nvcc`` at first use, see ``_build.py``):
 
 * ``ops/flash64.py`` — causal head_dim-64 attention (``easyrag_tpu`` K1);
-* ``ops/bm25_scatter.py`` — the BM25 postings scatter (``easyrag_tpu`` K5).
+* ``ops/int4_matvec.py`` — the int4 decode matvec (K2);
+* ``ops/flash_attention.py`` — causal GQA prefill attention (K3);
+* ``ops/flash_softcap.py`` — softcapped GQA attention, head_dim 256 (K4);
+* ``ops/bm25_scatter.py`` — the BM25 postings scatter (K5).
 
 Every wrapper runs its plain PyTorch version for CPU tensors and launches its
-kernel (or raises) for CUDA tensors. Nothing here imports ``jax``.
+kernel (or raises) for CUDA tensors. The entry points run on the card unless
+the caller passes ``device="cpu"``, and raise without one.
 """
 
 __version__ = "0.1.0"

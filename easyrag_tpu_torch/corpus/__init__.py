@@ -1,0 +1,17 @@
+"""Host-side corpus layer: reading, chunking, metadata, content views."""
+
+from .views import get_node_content, merge_strings  # noqa: F401
+from .reader import read_data  # noqa: F401
+from .splitter import SentenceSplitter  # noqa: F401
+from .extractors import (  # noqa: F401
+    extract_titles,
+    extract_file_paths,
+    filter_image,
+    run_extractors,
+)
+from .tokenizer import (  # noqa: F401
+    JiebaTokenizer,
+    load_stopwords,
+    default_stopwords,
+    tokenize_and_remove_stopwords,
+)

@@ -13,6 +13,7 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
+from .gemma import GemmaCostWiseReranker
 from .layers import DecoderConfig
 from .minicpm import MiniCPMLayerWiseReranker
 
@@ -57,6 +58,20 @@ def minicpm_from_jax(
         for layer_idx, w in params_np["heads"].items():
             put(model.heads[int(layer_idx)], w)
     return model
+
+
+def gemma_from_jax(
+    cfg: DecoderConfig,
+    params_np: Dict[str, Any],
+    device,
+    dtype: torch.dtype,
+    tokenizer,
+    **scorer_kwargs,
+) -> GemmaCostWiseReranker:
+    """A :class:`GemmaCostWiseReranker` holding a JAX Gemma tree's weights
+    (``heads`` keyed by layer; dense weights only; heads stay f32)."""
+    model = GemmaCostWiseReranker(cfg, tokenizer, device=device, dtype=dtype, **scorer_kwargs)
+    return model.load_tree_(params_np)
 
 
 _EXACT = ("w_q", "w_p", "scale")  # int8 bytes and f32 scales keep their dtype

@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..devices import resolve_device
 from ..ops.flash64 import apply_rope
 from ..ops.flash_attention import flash_attention, flash_attention_plain
 from .layers import DecoderConfig, embed, linear, mlp, rms_norm, rope_tables
@@ -419,11 +420,12 @@ class TorchCausalLM:
         max_batch: int = 8,
         spec_tokens: int = 0,
         spec_ngram: int = 2,
-        device=None,
+        device="cuda",
     ) -> None:
         """Load a local Qwen2 checkpoint (``quant``: "", "int8" or "int4";
-        int4 trees are fused, ``quant.fuse_decode_tree``) onto ``device``
-        (default: the card when there is one)."""
+        int4 trees are fused, ``quant.fuse_decode_tree``) onto ``device``:
+        the card unless the caller asks for the CPU; without a card it
+        raises."""
         from transformers import AutoTokenizer
 
         from .hf_loader import load_decoder_params, load_hf_config
@@ -432,8 +434,7 @@ class TorchCausalLM:
 
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"local LLM: {model_dir!r} is not a local model directory")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = resolve_device(device)
         hf = load_hf_config(model_dir)
         cfg = qwen2_config_from_hf(hf)
         params = load_decoder_params(model_dir, cfg.num_hidden_layers, dtype=dtype, quant=quant, device=device)

@@ -1,5 +1,5 @@
-"""HuggingFace causal-LM checkpoint -> the port's decoder tree (port of the
-causal-LM part of ``easyrag_tpu/models/hf_loader.py``).
+"""HuggingFace checkpoint -> the port's decoder tree (port of
+``easyrag_tpu/models/hf_loader.py``'s loader).
 
 Streams ``*.safetensors`` shard by shard from a local model directory and
 maps the llama-family names onto the JAX package's tree layout::
@@ -11,6 +11,9 @@ maps the llama-family names onto the JAX package's tree layout::
   (model.)layers.{i}.post_attention_layernorm.*     -> layers[i].post_norm
   (model.)norm.weight                               -> final_norm
   lm_head.weight                                    -> lm_head (absent: tied)
+  lm_head.{j}.linear_head.weight                    -> heads[start_layer + j*layer_sep]
+  (Gemma2: post_attention / pre_feedforward / post_feedforward norms map to
+   post_attn_norm / pre_mlp_norm / post_mlp_norm)
 
 Shards are read with ``framework="pt"``: real checkpoints are bf16, and numpy
 knows ``bfloat16`` only once ``ml_dtypes`` has registered it, which importing
@@ -23,13 +26,27 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from .quant import quantize_linear_int4, quantize_linear_int8
 
 QUANTS = ("", "int8", "int4")
+
+_NORM_MAP = {
+    "input_layernorm": "input_norm",
+    "post_attention_layernorm": "post_norm",
+    "pre_feedforward_layernorm": "pre_mlp_norm",
+    "post_feedforward_layernorm": "post_mlp_norm",
+}
+
+_GEMMA_NORM_MAP = {
+    "input_layernorm": "input_norm",
+    "post_attention_layernorm": "post_attn_norm",
+    "pre_feedforward_layernorm": "pre_mlp_norm",
+    "post_feedforward_layernorm": "post_mlp_norm",
+}
 
 
 def load_hf_config(model_dir: str) -> Dict[str, Any]:
@@ -66,19 +83,25 @@ def load_decoder_params(
     dtype: torch.dtype = torch.bfloat16,
     quant: str = "",
     device="cpu",
+    start_layer: Optional[int] = None,
+    gemma: bool = False,
+    head_layer_sep: int = 1,
 ) -> Dict[str, Any]:
-    """Stream a causal LM's safetensors into the decoder tree.
+    """Stream a checkpoint's safetensors into the decoder tree.
 
     ``quant="int8"`` or ``"int4"`` stores every attention/MLP projection and
     an untied ``lm_head`` quantized per output channel; ``"int4"`` also
     stores the embedding table int8 (per-row scales). Norms and biases stay
-    in ``dtype``."""
+    in ``dtype``; layerwise score heads are f32 ``[1, hidden]`` under
+    ``heads``, keyed by layer."""
     if quant in ("w8a8", "w4a8"):
         raise NotImplementedError(f"quant={quant!r}: activation quantization is ROADMAP Queue 1, item 4")
     if quant not in QUANTS:
         raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
     layers = [{"attn": {}, "mlp": {}} for _ in range(num_layers)]
     params: Dict[str, Any] = {"layers": layers}
+    heads: Dict[int, torch.Tensor] = {}
+    norm_map = _GEMMA_NORM_MAP if gemma else _NORM_MAP
 
     def put(t: torch.Tensor) -> torch.Tensor:
         return t.to(device=device, dtype=dtype)
@@ -99,8 +122,9 @@ def load_decoder_params(
             params["final_norm"] = put(tensor)
         elif parts[0] == "lm_head":
             if parts[1].isdigit():
-                raise NotImplementedError(f"{raw_name}: layerwise score heads are the reranker loader, ROADMAP Queue 1, item 5")
-            params["lm_head"] = put_linear(tensor)
+                heads[(start_layer or 0) + int(parts[1]) * head_layer_sep] = tensor.to(device=device, dtype=torch.float32)
+            else:
+                params["lm_head"] = put_linear(tensor)
         elif parts[0] == "layers":
             i = int(parts[1])
             if i >= num_layers:
@@ -114,10 +138,8 @@ def load_decoder_params(
                     layers[i]["attn"].setdefault(proj, {})["b"] = put(tensor)
             elif sub == "mlp":
                 layers[i]["mlp"][parts[3].split("_")[0]] = put_linear(tensor)
-            elif sub == "input_layernorm":
-                layers[i]["input_norm"] = put(tensor)
-            elif sub == "post_attention_layernorm":
-                layers[i]["post_norm"] = put(tensor)
-            elif sub in ("pre_feedforward_layernorm", "post_feedforward_layernorm"):
-                raise NotImplementedError(f"{raw_name}: Gemma2's norms are the Gemma reranker, ROADMAP Queue 1, item 11")
+            elif sub in norm_map:
+                layers[i][norm_map[sub]] = put(tensor)
+    if heads:
+        params["heads"] = heads
     return params

@@ -2,14 +2,18 @@
 
 Weights are stored ``[out, in]`` as in the JAX tree; RMSNorm in f32;
 rotate-half RoPE; SiLU MLP; MiniCPM's residual scale
-``scale_depth / sqrt(num_layers)`` and embedding scale ``scale_emb``.
-Padding is a per-row key range ``[kv_start, kv_end)`` instead of a mask.
+``scale_depth / sqrt(num_layers)`` and embedding scale ``scale_emb``; Gemma2's
+``(1 + w)`` norm gain, four-norm block, GeGLU (tanh GELU), embedding scale
+``sqrt(hidden)`` and attention scale ``query_pre_attn_scalar ** -0.5``.
+Padding is a per-row key range ``[kv_start, kv_end)`` instead of a mask; the
+softcapped (Gemma2) attention takes right padding only, given as no range.
 
 Two forms share these pieces:
 
-* :class:`DecoderLayer`, the MiniCPM reranker's module (dense weights,
-  batch-shared positions, attention through the K1 port ``ops/flash64.py``
-  for head_dim-64 multi-head attention, the einsum formulation otherwise);
+* :class:`DecoderLayer`, the rerankers' module (dense weights, batch-shared
+  positions). Attention goes through the K4 port ``ops/flash_softcap.py``
+  for every softcapped config, the K1 port ``ops/flash64.py`` for
+  head_dim-64 multi-head attention, the einsum formulation otherwise;
 * the generator's functions over a JAX-layout tree of dicts
   (:func:`linear`, :func:`mlp`, :func:`embed`), where a linear is dense
   (``w``), int8 (``w_q``/``scale``) or int4 (``w_p``/``scale``), each with an
@@ -27,6 +31,7 @@ from torch import nn
 
 from ..ops import int4_matvec
 from ..ops.flash64 import apply_rope, flash64_attention, masked_attention
+from ..ops.flash_softcap import flash_softcap_attention
 from .quant import unpack_int4
 
 
@@ -46,6 +51,12 @@ class DecoderConfig:
     scale_emb: float = 1.0
     scale_depth: float = 0.0
     dim_model_base: float = 0.0
+    # Gemma2 deltas: (1 + w) norms, four-norm block, GeGLU, sqrt(hidden)
+    # embedding scale; logit softcap (0 = off) and attention scale
+    # query_pre_attn_scalar ** -0.5 (0 = head_dim ** -0.5)
+    gemma: bool = False
+    attn_logit_softcapping: float = 0.0
+    query_pre_attn_scalar: float = 0.0
 
     @property
     def hd(self) -> int:
@@ -58,10 +69,12 @@ class DecoderConfig:
         return 1.0
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, gemma: bool = False) -> torch.Tensor:
+    """RMSNorm in f32; Gemma parameterizes the gain as ``1 + w``."""
     xf = x.float()
     normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
-    return (normed * weight.float()).to(x.dtype)
+    w = weight.float()
+    return (normed * (1.0 + w if gemma else w)).to(x.dtype)
 
 
 def rope_tables(
@@ -82,8 +95,29 @@ def _weight(n_out: int, n_in: int, **kw) -> nn.Parameter:
     return nn.Parameter(torch.empty(n_out, n_in, **kw), requires_grad=False)
 
 
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator, start_layer: int, std: float = 0.02) -> nn.Module:
+    """Seeded random weights for a reranker module (``embed``, ``layers``,
+    ``heads``), drawn on its device: the embedding and every projection
+    ``N(0, std)``, score heads from ``start_layer`` on, norms left as built
+    (the layout ``easyrag_tpu.models.layers.init_params`` draws)."""
+
+    def fill(p: torch.Tensor) -> None:
+        p.copy_(torch.randn(p.shape, generator=generator, device=p.device, dtype=p.dtype) * std)
+
+    fill(model.embed)
+    for layer in model.layers:
+        for w in (layer.q, layer.k, layer.v, layer.o, layer.gate, layer.up, layer.down):
+            fill(w)
+    model.heads.zero_()
+    fill(model.heads[start_layer:])
+    return model
+
+
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + SiLU MLP block with MiniCPM's residual scale."""
+    """Pre-norm attention + SiLU MLP block with MiniCPM's residual scale, or
+    (``cfg.gemma``) Gemma2's block: norms before and after both attention and
+    the GeGLU MLP, plain residuals."""
 
     def __init__(self, cfg: DecoderConfig, device=None, dtype=None) -> None:
         super().__init__()
@@ -95,18 +129,32 @@ class DecoderLayer(nn.Module):
         self.k = _weight(nkv * hd, d, **kw)
         self.v = _weight(nkv * hd, d, **kw)
         self.o = _weight(d, nh * hd, **kw)
-        self.post_norm = nn.Parameter(torch.ones(d, **kw), requires_grad=False)
+        norms = ("post_attn_norm", "pre_mlp_norm", "post_mlp_norm") if cfg.gemma else ("post_norm",)
+        for name in norms:
+            setattr(self, name, nn.Parameter(torch.ones(d, **kw), requires_grad=False))
         self.gate = _weight(cfg.intermediate_size, d, **kw)
         self.up = _weight(cfg.intermediate_size, d, **kw)
         self.down = _weight(d, cfg.intermediate_size, **kw)
 
     def attention(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
+        """``kv_start``/``kv_end`` ``None``: right padding (pad keys follow
+        every real query), the only padding the softcapped attention takes."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
         q, k, v = F.linear(x, self.q), F.linear(x, self.k), F.linear(x, self.v)
-        scale = hd ** -0.5
-        if hd == 64 and nkv == nh:
+        scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else hd ** -0.5
+        if cfg.attn_logit_softcapping:
+            # K4 has no mask input: causality alone keeps right-padded keys
+            # out of the real rows (easyrag_tpu/ops/flash_softcap.py:29-36)
+            if kv_start is not None or kv_end is not None:
+                raise ValueError("softcapped attention takes right padding only (kv_start/kv_end None)")
+            qh = apply_rope(q.reshape(b, s, nh, hd), cos[None], sin[None])
+            kh = apply_rope(k.reshape(b, s, nkv, hd), cos[None], sin[None])
+            out = flash_softcap_attention(
+                qh.reshape(b, s, nh * hd), kh.reshape(b, s, nkv * hd), v, nh, nkv, scale, cfg.attn_logit_softcapping
+            )
+        elif hd == 64 and nkv == nh:
             out = flash64_attention(q, k, v, kv_start, kv_end, scale, cos, sin)
         else:
             qh = apply_rope(q.reshape(b, s, nh, hd), cos[None], sin[None])
@@ -119,11 +167,18 @@ class DecoderLayer(nn.Module):
         return F.linear(out, self.o)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(F.silu(F.linear(x, self.gate)) * F.linear(x, self.up), self.down)
+        gate = F.linear(x, self.gate)
+        act = F.gelu(gate, approximate="tanh") if self.cfg.gemma else F.silu(gate)
+        return F.linear(act * F.linear(x, self.up), self.down)
 
     def forward(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
-        r = self.cfg.residual_scale
         eps = self.cfg.rms_norm_eps
+        if self.cfg.gemma:
+            h = self.attention(rms_norm(x, self.input_norm, eps, True), kv_start, kv_end, cos, sin)
+            x = x + rms_norm(h, self.post_attn_norm, eps, True)
+            h = self.mlp(rms_norm(x, self.pre_mlp_norm, eps, True))
+            return x + rms_norm(h, self.post_mlp_norm, eps, True)
+        r = self.cfg.residual_scale
         h = self.attention(rms_norm(x, self.input_norm, eps), kv_start, kv_end, cos, sin)
         x = x + h * r
         h = self.mlp(rms_norm(x, self.post_norm, eps))
@@ -173,13 +228,16 @@ def embed(
     input_ids: torch.Tensor,
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Rows of the embedding table, times ``scale_emb``. An int8 table
-    (``{"w_q", "scale"}``, per-row scales) is dequantized on the gathered
-    rows into ``dtype``."""
+    """Rows of the embedding table, times ``scale_emb`` (Gemma: times
+    ``sqrt(hidden)`` rounded to the rows' dtype first, 59.75 in bf16 at
+    hidden 3584, as JAX rounds it). An int8 table (``{"w_q", "scale"}``,
+    per-row scales) is dequantized on the gathered rows into ``dtype``."""
     ids = input_ids.long()
     if isinstance(table, dict):
         rows = F.embedding(ids, table["w_q"]).to(dtype)
         h = rows * table["scale"][ids].to(dtype)[..., None]
     else:
         h = F.embedding(ids, table)
+    if cfg.gemma:
+        return h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
     return h * cfg.scale_emb if cfg.scale_emb != 1.0 else h

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import DecoderConfig, DecoderLayer, embed, rms_norm, rope_tables
+from ..devices import resolve_device
+from .layers import DecoderConfig, DecoderLayer, embed, init_random_, rms_norm, rope_tables
 
 PROMPT = (
     "Given a query A and a passage B, determine whether the passage "
@@ -64,18 +65,18 @@ class MiniCPMLayerWiseReranker(nn.Module):
         efficient_layers: Tuple[int, ...] = (12,),
         seq_bucket: int = 64,
         padding_side: str = "",
-        device=None,
+        device="cuda",
         dtype: torch.dtype = torch.bfloat16,
     ) -> None:
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         d = cfg.hidden_size
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, d, **kw), requires_grad=False)
         self.layers = nn.ModuleList(DecoderLayer(cfg, **kw) for _ in range(cfg.num_hidden_layers))
         self.final_norm = nn.Parameter(torch.ones(d, **kw), requires_grad=False)
         self.heads = nn.Parameter(
-            torch.zeros(cfg.num_hidden_layers + 1, d, device=device, dtype=torch.float32),
+            torch.zeros(cfg.num_hidden_layers + 1, d, device=kw["device"], dtype=torch.float32),
             requires_grad=False,
         )
         self.tokenizer = tokenizer
@@ -91,20 +92,9 @@ class MiniCPMLayerWiseReranker(nn.Module):
         # explicit argument > the checkpoint tokenizer's declaration > left
         self.padding_side = padding_side or getattr(tokenizer, "padding_side", None) or "left"
 
-    @torch.no_grad()
     def init_random_(self, generator: torch.Generator, std: float = 0.02) -> "MiniCPMLayerWiseReranker":
-        """Seeded random weights drawn on the module's device (norms stay 1),
-        the layout ``easyrag_tpu.models.layers.init_params`` draws."""
-        def fill(p: torch.Tensor) -> None:
-            p.copy_(torch.randn(p.shape, generator=generator, device=p.device, dtype=p.dtype) * std)
-
-        fill(self.embed)
-        for layer in self.layers:
-            for w in (layer.q, layer.k, layer.v, layer.o, layer.gate, layer.up, layer.down):
-                fill(w)
-        self.heads.zero_()
-        fill(self.heads[self.start_layer :])
-        return self
+        """Seeded random weights (``layers.init_random_``; norms stay 1)."""
+        return init_random_(self, generator, self.start_layer, std)
 
     # -- tokenization (mirrors rerankers.py:251-292) --------------------------
 

@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..devices import resolve_device
 from ..index.sparse import SparseIndex
 from .bm25 import filter_topk
 
@@ -59,10 +60,11 @@ class ResidentSparseIndex:
         tail: Optional[str] = None,
         light_rows: Optional[bool] = None,
         light_rows_hbm_budget: int = 256 * 1024 * 1024,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> None:
         """``light_rows`` forces the light layout (None: ``rows`` when its
-        ``(V+1)*C*8``-byte table fits ``light_rows_hbm_budget``)."""
+        ``(V+1)*C*8``-byte table fits ``light_rows_hbm_budget``). ``device``
+        is the card unless the caller asks for the CPU."""
         if heavy_dtype in ("bfloat16", "int8"):
             raise NotImplementedError(
                 f"heavy_dtype={heavy_dtype!r}: compressed heavy storage is not ported yet (ROADMAP Queue 1, item 2)"
@@ -75,7 +77,7 @@ class ResidentSparseIndex:
             )
         if tail not in (None, "xla"):
             raise ValueError(f"unsupported tail {tail!r}")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.host_index = index
         self.num_docs = N = index.num_docs
         self.max_query_terms = max_query_terms

@@ -4,45 +4,35 @@
 (``pipeline.py:351-391``): content BM25 (top ``f_topk_2``) and know-path BM25
 (top ``f_topk_3``), both resident on the device and scored together for the
 query, content fusion, the injected reranker (``LLMRerank`` over the port's
-MiniCPM scorer), the top contexts into the QA template, and generation. The
-answer comes from the injected LLM, or, with ``local_llm_name`` and
-``tpu.local_llm_answer``, from the on-device generator
-(``models/decode.py::TorchCausalLM``) behind the shared
-``generation.BatchingLocalLLM``, as ``easyrag_tpu/pipeline.py:99-127`` wires
-it. Every other route or option of the config raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+MiniCPM or Gemma2 scorer), the top contexts into the QA template, and
+generation. The answer comes from the injected LLM, or, with
+``local_llm_name`` and ``tpu.local_llm_answer``, from the on-device generator
+(``models/decode.py::TorchCausalLM``) behind ``generation.BatchingLocalLLM``,
+as ``easyrag_tpu/pipeline.py:99-127`` wires it. Every other route or option
+of the config raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
-import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from easyrag_tpu.config import EasyRAGConfig
-from easyrag_tpu.corpus.extractors import run_extractors
-from easyrag_tpu.corpus.reader import read_data
-from easyrag_tpu.corpus.splitter import SentenceSplitter
-from easyrag_tpu.corpus.tokenizer import JiebaTokenizer, default_stopwords, load_stopwords
-from easyrag_tpu.corpus.views import get_node_content
-from easyrag_tpu.generation import BatchingLocalLLM, CompletionResponse, OpenAICompatLLM, generation
-from easyrag_tpu.schema import NodeWithScore, QueryBundle, build_nodeid2idx
-from easyrag_tpu.templates import MERGE_TEMPLATE, QA_TEMPLATE, PromptTemplate
-from easyrag_tpu.utils.events import emit
-
+from .config import EasyRAGConfig
+from .corpus.extractors import run_extractors
+from .corpus.reader import read_data
+from .corpus.splitter import SentenceSplitter
+from .corpus.tokenizer import JiebaTokenizer, default_stopwords, load_stopwords
+from .corpus.views import get_node_content
+from .devices import resolve_device
+from .generation import BatchingLocalLLM, CompletionResponse, OpenAICompatLLM, generation
 from .ops.bm25_resident import DualResidentScorer
 from .retrievers import BM25Retriever, HybridRetriever
-
-
-@contextlib.contextmanager
-def _timed(name: str):
-    """``utils.events.trace`` without its profiler hook, which imports jax."""
-    start = time.perf_counter()
-    yield
-    emit("timing", {"name": name, "seconds": time.perf_counter() - start})
+from .schema import NodeWithScore, QueryBundle, build_nodeid2idx
+from .templates import MERGE_TEMPLATE, QA_TEMPLATE, PromptTemplate
+from .utils.events import emit, trace
 
 
 def _check_supported(cfg: EasyRAGConfig, reranker) -> None:
@@ -77,17 +67,18 @@ class EasyRAGPipeline:
         documents=None,
         sparse_tokenizer=None,
         splitter=None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> None:
         """``sparse_tokenizer`` tokenizes for BM25 (default: jieba, as the
         reference); ``splitter`` chunks the documents (default: the
         reference's ``SentenceSplitter(chunk_size, chunk_overlap)``, whose
-        default token counter wants a tiktoken table)."""
+        default token counter wants a tiktoken table). ``device`` is the
+        card unless the caller asks for the CPU; without a card it raises."""
         if isinstance(config, dict):
             config = EasyRAGConfig.from_dict(config)
         _check_supported(config, reranker)
         self.config = cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.re_only = cfg.re_only
         self.llm_embed_type = cfg.llm_embed_type
         self.ans_refine_type = cfg.ans_refine_type
@@ -182,7 +173,7 @@ class EasyRAGPipeline:
                 spec_ngram=cfg.tpu.local_llm_spec_ngram,
                 device=device,
             )
-        from easyrag_tpu.generation import LocalHFLLM
+        from .generation import LocalHFLLM
 
         return LocalHFLLM(cfg.local_llm_name)
 
@@ -237,7 +228,7 @@ class EasyRAGPipeline:
         """Sparse dual route -> fusion -> rerank -> QA generation -> optional
         answer refinement."""
         query_bundle = QueryBundle(query_str=query_str)
-        with _timed("retrieval"):
+        with trace("retrieval"):
             routes = self._dual_retrieve(query_bundle)
             if routes is None:
                 routes = (
@@ -247,14 +238,14 @@ class EasyRAGPipeline:
             node_with_scores = HybridRetriever.fusion(list(routes))
         if self.reranker:
             emit("reranking", {"candidates": len(node_with_scores)})
-            with _timed("rerank"):
+            with trace("rerank"):
                 node_with_scores = self.reranker.postprocess_nodes(node_with_scores, query_bundle)
         contents = [self.get_node_content(node) for node in node_with_scores]
         if self.re_only:
             return {"answer": "", "nodes": node_with_scores, "contexts": contents}
         context_str = "\n\n".join(f"### 文档{i}: {c}" for i, c in enumerate(contents))
         prompt = self.qa_template.format(context_str=context_str, query_str=query_str)
-        with _timed("generation"):
+        with trace("generation"):
             ret = await self.generation(self.llm, prompt)
         if self.ans_refine_type == 1:
             ret = await self.generation(

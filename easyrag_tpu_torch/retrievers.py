@@ -15,13 +15,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from easyrag_tpu.corpus.tokenizer import tokenize_and_remove_stopwords
-from easyrag_tpu.corpus.views import get_node_content
-from easyrag_tpu.schema import NodeWithScore, QueryBundle, TextNode
-
+from .corpus.tokenizer import tokenize_and_remove_stopwords
+from .corpus.views import get_node_content
+from .devices import resolve_device
 from .index.sparse import build_sparse_index
 from .ops.bm25 import bm25_score_topk
 from .ops.bm25_resident import ResidentSparseIndex
+from .schema import NodeWithScore, QueryBundle, TextNode
 
 
 class BM25Retriever:
@@ -41,7 +41,7 @@ class BM25Retriever:
         heavy_dtype: str = "float32",
         heavy_hbm_budget: int = 512 * 1024 * 1024,
         light_rows_hbm_budget: int = 256 * 1024 * 1024,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> None:
         self._nodes = nodes
         self._tokenizer = tokenizer
@@ -50,7 +50,7 @@ class BM25Retriever:
         self.embed_type = embed_type
         self.max_query_postings = max_query_postings
         self.use_pallas = use_pallas
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.filter_dict: Optional[Dict[str, str]] = None
         corpus_tokens = [
             tokenize_and_remove_stopwords(tokenizer, get_node_content(node, embed_type), stopwords)

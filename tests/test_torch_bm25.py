@@ -111,7 +111,7 @@ def test_score_topk_matches_reference(corpus, use_pallas, dir_f):
 def _residents(corpus, light_rows, light_cap=4):
     ref_idx, idx = _indexes(corpus)
     kw = dict(light_cap=light_cap, max_query_terms=16, light_rows=light_rows)
-    return jres.ResidentSparseIndex(ref_idx, **kw), tres.ResidentSparseIndex(idx, **kw)
+    return jres.ResidentSparseIndex(ref_idx, **kw), tres.ResidentSparseIndex(idx, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("light_rows", [True, False])
@@ -165,7 +165,7 @@ def test_dual_scorer_matches_reference(corpus):
     paths = [[f"p{i % 5}", f"p{i % 3}x"] for i in range(len(docs))]
     ref_c, got_c = _residents(corpus, True)
     ref_p = jres.ResidentSparseIndex(jax_build(paths, dirs=dirs, use_native=False), light_cap=4, max_query_terms=16)
-    got_p = tres.ResidentSparseIndex(build_sparse_index(paths, dirs=dirs), light_cap=4, max_query_terms=16)
+    got_p = tres.ResidentSparseIndex(build_sparse_index(paths, dirs=dirs), light_cap=4, max_query_terms=16, device="cpu")
     qs = [q + ["p1", "p2x"] for q in queries]
     dir_fs = [-1, 2, -2, -1, 0]
     (rv1, ri1), (rv2, ri2) = jres.DualResidentScorer(ref_c, ref_p).score_topk(qs, 10, 3, dir_fs)
@@ -183,16 +183,16 @@ def test_dual_scorer_matches_reference(corpus):
 def test_resident_auto_cap_and_limits(corpus):
     _, idx = _indexes(corpus)
     lens = np.diff(idx.stats.term_offsets)
-    r = tres.ResidentSparseIndex(idx, heavy_hbm_budget=1 << 30)
+    r = tres.ResidentSparseIndex(idx, heavy_hbm_budget=1 << 30, device="cpu")
     assert r.light_cap == 8  # the smallest cap fits a generous budget
     tight = int((lens > 32).sum()) * idx.num_docs * 4
     assert tres.auto_light_cap(lens, idx.num_docs, 4, tight) == 32
     assert tres.auto_light_cap(lens, idx.num_docs, 4, 0) == idx.num_docs
     with pytest.raises(ValueError):
-        tres.ResidentSparseIndex(idx, max_query_terms=2).query_terms(["t1", "t2", "t3"])
+        tres.ResidentSparseIndex(idx, max_query_terms=2, device="cpu").query_terms(["t1", "t2", "t3"])
     for kw in ({"heavy_dtype": "bfloat16"}, {"heavy_dtype": "int8"}, {"tail": "pallas"}):
         with pytest.raises(NotImplementedError):
-            tres.ResidentSparseIndex(idx, **kw)
+            tres.ResidentSparseIndex(idx, device="cpu", **kw)
 
 
 @pytest.fixture

@@ -8,12 +8,17 @@ and send the same QA prompt. The queries cover the dual route, the dir filter
 and a query past the resident term budget (the overflow gather path, K5's
 plain version here). With ``tpu.local_llm_answer`` both pipelines answer with
 their own on-device generator over one tiny saved Qwen2 checkpoint, and the
-answers must be equal. A subprocess with ``jax`` blocked runs the port alone,
-including a generator loaded from a bf16 checkpoint.
+answers must be equal. Each pipeline takes its own package's config, reranker
+driver and schema. A subprocess with ``jax``, ``jaxlib`` and ``easyrag_tpu``
+blocked runs the port alone, including a generator loaded from a bf16
+checkpoint, and an AST scan holds every port file to importing nothing of
+either.
 """
 
+import ast
 import asyncio
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -24,16 +29,19 @@ import numpy as np
 import pytest
 import torch
 
-from easyrag_tpu.config import EasyRAGConfig, TPUConfig
-from easyrag_tpu.corpus import tokenizer as tokmod
-from easyrag_tpu.generation import CompletionResponse
+from easyrag_tpu import config as jconfig
+from easyrag_tpu.corpus import tokenizer as jtokmod
 from easyrag_tpu.models.minicpm import MiniCPMLayerWiseReranker as JaxReranker
 from easyrag_tpu.pipeline import EasyRAGPipeline as JaxPipeline
-from easyrag_tpu.rerankers import LLMRerank
-from easyrag_tpu.schema import QueryBundle
+from easyrag_tpu.rerankers import LLMRerank as JaxLLMRerank
+from easyrag_tpu_torch import config as tconfig
+from easyrag_tpu_torch.corpus import tokenizer as tokmod
+from easyrag_tpu_torch.generation import CompletionResponse
 from easyrag_tpu_torch.models.convert import minicpm_from_jax
 from easyrag_tpu_torch.models.layers import DecoderConfig
 from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+from easyrag_tpu_torch.rerankers import LLMRerank
+from easyrag_tpu_torch.schema import QueryBundle
 from test_torch_decode import tiny_causal_checkpoint  # noqa: F401  (a fixture)
 from test_torch_minicpm import ARCH, CharTok, tiny_params
 
@@ -76,33 +84,42 @@ class RecordingLLM:
         return CompletionResponse(text=f"answer-{len(self.prompts)}")
 
 
+def configs(**kw):
+    """The same knobs as each package's ``EasyRAGConfig``: (JAX's, the port's)."""
+    tpu = kw.pop("tpu", {})
+    return tuple(m.EasyRAGConfig(**kw, tpu=m.TPUConfig(**tpu)) for m in (jconfig, tconfig))
+
+
 @pytest.fixture
 def offline_counter(monkeypatch):
     # the splitter's default counter would try to fetch a tiktoken table;
     # both pipelines chunk with the offline approximation instead
-    monkeypatch.setattr(tokmod, "_counter", tokmod.approx_token_count)
-    monkeypatch.setattr(tokmod, "_counter_name", "approx")
+    for mod in (jtokmod, tokmod):
+        monkeypatch.setattr(mod, "_counter", mod.approx_token_count)
+        monkeypatch.setattr(mod, "_counter_name", "approx")
 
 
 @pytest.mark.parametrize("side", ["left", "right"])
 def test_run_matches_jax_pipeline(tmp_path, offline_counter, side):
     data_path = make_corpus(tmp_path / "corpus")
-    cfg = EasyRAGConfig(
+    cfg, _ = configs(
         data_path=data_path, chunk_size=64, chunk_overlap=10, f_topk_2=8, f_topk_3=2,
-        r_topk=3, r_embed_bs=4,
-        tpu=TPUConfig(use_pallas=False, max_query_terms=8, max_query_postings=2048),
+        r_topk=3, r_embed_bs=4, tpu=dict(use_pallas=False, max_query_terms=8, max_query_postings=2048),
+    )
+    _, port_cfg = configs(
+        data_path=data_path, chunk_size=64, chunk_overlap=10, f_topk_2=8, f_topk_3=2,
+        r_topk=3, r_embed_bs=4, tpu=dict(max_query_terms=8, max_query_postings=2048),
     )
     jcfg, params, params_np = tiny_params()
     opts = dict(start_layer=1, cutoff_layer=3, max_length=64)
     jax_llm, port_llm = RecordingLLM(), RecordingLLM()
     ref = JaxPipeline(
         cfg, llm=jax_llm,
-        reranker=LLMRerank(JaxReranker(jcfg, params, CharTok(side), **opts), top_n=3, embed_bs=4, embed_type=1),
+        reranker=JaxLLMRerank(JaxReranker(jcfg, params, CharTok(side), **opts), top_n=3, embed_bs=4, embed_type=1),
     )
     scorer = minicpm_from_jax(DecoderConfig(**ARCH), params_np, "cpu", torch.float32, CharTok(side), **opts)
-    port_cfg = dataclasses.replace(cfg, tpu=TPUConfig(max_query_terms=8, max_query_postings=2048))
     got = EasyRAGPipeline(
-        port_cfg, llm=port_llm, reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1)
+        port_cfg, llm=port_llm, reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1), device="cpu"
     )
     assert got.config.tpu.use_pallas  # the overflow query goes through K5's wrapper
     assert [n.text for n in got.nodes] == [n.text for n in ref.nodes]
@@ -120,17 +137,17 @@ def test_run_matches_jax_pipeline(tmp_path, offline_counter, side):
 
 
 def test_local_llm_answer_matches_jax_pipeline(tmp_path, offline_counter, tiny_causal_checkpoint):
-    from easyrag_tpu.generation import BatchingLocalLLM
+    from easyrag_tpu_torch.generation import BatchingLocalLLM
 
     data_path = make_corpus(tmp_path / "corpus")
-    cfg = EasyRAGConfig(
+    cfg, port_cfg = configs(
         data_path=data_path, chunk_size=64, chunk_overlap=10, f_topk_2=3, f_topk_3=0, use_reranker=0,
         local_llm_name=tiny_causal_checkpoint, cache_path=str(tmp_path / "cache"),
-        tpu=TPUConfig(use_pallas=False, local_llm_answer=True, local_llm_quant="", local_llm_max_new=4,
-                      local_llm_gen_batch=2, local_llm_spec=3),
+        tpu=dict(use_pallas=False, local_llm_answer=True, local_llm_quant="", local_llm_max_new=4,
+                 local_llm_gen_batch=2, local_llm_spec=3),
     )
     ref = JaxPipeline(cfg)
-    got = EasyRAGPipeline(cfg)
+    got = EasyRAGPipeline(port_cfg, device="cpu")
     assert isinstance(got.llm, BatchingLocalLLM) and got.local_llm.spec_tokens == 3
     for n, q in enumerate(QUERIES[:2], start=1):
         a = asyncio.run(ref.run(dict(q)))
@@ -145,10 +162,10 @@ def test_unported_options_raise(tmp_path, offline_counter):
     data_path = make_corpus(tmp_path / "corpus")
     for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1}, {"split_type": 1}, {"hyde": True},
                {"index_artifact_path": str(tmp_path / "a")}, {"use_reranker": 2},
-               {"local_llm_name": "m", "tpu": TPUConfig(local_llm_answer=True, local_llm_continuous=True)},
-               {"local_llm_name": "m", "tpu": TPUConfig(local_llm_quant="w4a8")}):
+               {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_answer=True, local_llm_continuous=True)},
+               {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_quant="w4a8")}):
         with pytest.raises(NotImplementedError):
-            EasyRAGPipeline(EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}))
+            EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}), device="cpu")
 
 
 BLOCKED_JAX_SCRIPT = textwrap.dedent(
@@ -156,16 +173,17 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     import asyncio, json, os, sys
     sys.modules["jax"] = None
     sys.modules["jaxlib"] = None
+    sys.modules["easyrag_tpu"] = None
     sys.path.insert(0, {repo!r})
     import torch
     import chip_smoke  # noqa: F401  (importing the smoke script loads nothing of JAX)
-    from easyrag_tpu.config import EasyRAGConfig
-    from easyrag_tpu.corpus.splitter import SentenceSplitter
-    from easyrag_tpu.corpus.tokenizer import approx_token_count
-    from easyrag_tpu.rerankers import LLMRerank
+    from easyrag_tpu_torch.config import EasyRAGConfig
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.rerankers import LLMRerank
     from easyrag_tpu_torch.models.layers import DecoderConfig
     from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
-    from easyrag_tpu.generation import CompletionResponse
+    from easyrag_tpu_torch.generation import CompletionResponse
     from easyrag_tpu_torch.pipeline import EasyRAGPipeline
 
     DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
@@ -196,13 +214,14 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
             return {{"input_ids": ids[:max_length] if truncation and max_length else ids}}
 
     scorer = MiniCPMLayerWiseReranker(DecoderConfig(**ARCH), Tok(), start_layer=1, cutoff_layer=3,
-                                      max_length=64, dtype=torch.float32)
+                                      max_length=64, device="cpu", dtype=torch.float32)
     scorer.init_random_(torch.Generator().manual_seed(0))
     pipe = EasyRAGPipeline(
         EasyRAGConfig(data_path=root, chunk_size=64, chunk_overlap=10, f_topk_2=8, f_topk_3=2),
         llm=StubLLM(), reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1),
         sparse_tokenizer=CharCut(),
         splitter=SentenceSplitter(64, 10, token_counter=approx_token_count, sentence_splitter=lambda t: [t]),
+        device="cpu",
     )
     out = [asyncio.run(pipe.run(dict(q))) for q in QUERIES]
 
@@ -232,7 +251,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     ids = torch.tensor([[0, 0, 5, 7, 9, 11, 3, 2]], dtype=torch.int32)
     toks = decode.generate_greedy(cfg, params, ids, (ids > 0).to(torch.int32), torch.tensor([63], dtype=torch.int32), 4)
 
-    loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib"))
+    loaded = sorted(m for m, mod in sys.modules.items()
+                    if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu"))
     print(json.dumps({{"contexts": [len(o["contexts"]) for o in out], "answers": [o["answer"] for o in out],
                       "fused": sorted(params["layers"][0]["attn"]) + sorted(params["layers"][0]["mlp"]),
                       "embed": sorted(params["embed"]), "tokens": toks.tolist(), "jax_modules": loaded}}))
@@ -256,3 +276,63 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert len(result["tokens"][0]) == 4 and all(0 <= t < 64 for t in result["tokens"][0])
     assert result["answers"] == ["answer"] * len(QUERIES)
     assert all(0 < n <= 3 for n in result["contexts"])
+
+
+def _imported_modules(path):
+    """Every module a file imports, by its absolute dotted name (relative
+    imports inside the port resolve to ``easyrag_tpu_torch``)."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("easyrag_tpu_torch" if node.level else node.module or "")
+    return names
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = glob.glob(os.path.join(REPO, "easyrag_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 30
+    bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in ("easyrag_tpu", "jax", "jaxlib")]
+    assert bad == []
+
+
+@pytest.mark.parametrize("name", ["easyrag.yaml", "four_tenant.yaml"])
+def test_both_packages_parse_configs_alike(name):
+    path = os.path.join(REPO, "configs", name)
+    ref, got = jconfig.load_config(path), tconfig.load_config(path)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.extra == ref.extra
+
+
+def test_entry_points_default_to_the_card(tmp_path, offline_counter, tiny_causal_checkpoint):
+    from easyrag_tpu_torch.index.sparse import build_sparse_index
+    from easyrag_tpu_torch.models.decode import TorchCausalLM
+    from easyrag_tpu_torch.models.gemma import GemmaCostWiseReranker
+    from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
+    from easyrag_tpu_torch.ops.bm25_resident import ResidentSparseIndex
+    from easyrag_tpu_torch.retrievers import BM25Retriever
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults run there")
+    _, cfg = configs(data_path=make_corpus(tmp_path / "corpus"), use_reranker=0)
+    no_card = pytest.raises(RuntimeError, match="no CUDA device")
+    with no_card:
+        EasyRAGPipeline(cfg, llm=RecordingLLM())
+    with no_card:
+        BM25Retriever([], tokenizer=None, stopwords=set())
+    with no_card:
+        ResidentSparseIndex(build_sparse_index([["a", "b"], ["b"]]))
+    with no_card:
+        TorchCausalLM(tiny_causal_checkpoint)
+    tiny = DecoderConfig(vocab_size=8, hidden_size=8, intermediate_size=8, num_hidden_layers=1,
+                         num_attention_heads=1, num_key_value_heads=1)
+    with no_card:
+        MiniCPMLayerWiseReranker(tiny, tokenizer=None)
+    with no_card:
+        GemmaCostWiseReranker(dataclasses.replace(tiny, gemma=True), tokenizer=None)
+    assert EasyRAGPipeline(cfg, llm=RecordingLLM(), device="cpu").device.type == "cpu"

@@ -1,0 +1,119 @@
+"""Where the time of one Gemma2 reranker batch goes on the card.
+
+Builds the port's ``GemmaCostWiseReranker`` at the width and depth of
+bge-reranker-v2.5-gemma2-lightweight (Gemma2-9B body, random bf16 weights
+from a seed, the reference's operating point: cutoff 28, compression at
+layer 24 by 2, ``max_length`` 1024), scores ``--batches`` 32-pair batches
+of ~1100-token pairs with CUDA-event timing, then one batch under
+``torch.profiler``. Prints the wall time per batch, the device's busy and
+idle shares of the profiled batch, the device time by kind (K4, cuBLAS
+GEMMs, the rest) and the kernels that take the most time.
+
+Run on a machine with one CUDA card:
+    python tools/torch_profile_gemma.py [--batches 3] [--batch 32]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+from easyrag_tpu_torch.models.gemma import GemmaCostWiseReranker  # noqa: E402
+from easyrag_tpu_torch.models.layers import DecoderConfig  # noqa: E402
+from easyrag_tpu_torch.ops import flash_softcap as k4  # noqa: E402
+
+GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
+
+
+def kind(name: str) -> str:
+    low = name.lower()
+    if "flash_softcap" in low:
+        return "K4"
+    if any(m in low for m in GEMM_MARKS):
+        return "GEMM"
+    return "other"
+
+
+def make_pairs(batch: int, seed: int):
+    """Query/passage pairs shaped like the pipeline's: a short query and a
+    ~300-word passage of the synthetic corpus's words."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for i in range(batch):
+        query = " ".join(f"t{t}" for t in rng.integers(0, 4000, size=12))
+        passage = f"文档{i}\n" + " ".join(f"t{t}" for t in rng.zipf(1.3, size=300) % 40_000)
+        pairs.append((query, passage))
+    return pairs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=32)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print(cs.run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0])
+    cfg = DecoderConfig(**cs.GEMMA2_9B)
+    scorer = GemmaCostWiseReranker(
+        cfg, cs.CharTokenizer(cfg.vocab_size), cutoff_layer=cs.GEMMA_CUTOFF, compress_layer=cs.GEMMA_COMPRESS,
+        compress_ratio=2, max_length=cs.MAX_LENGTH, device=dev, dtype=torch.bfloat16,
+    ).init_random_(torch.Generator(device=dev).manual_seed(cs.SEED + 7), start_layer=cs.GEMMA_START)
+    pairs = make_pairs(args.batch, cs.SEED)
+    ids, _, _, _ = scorer.build_inputs(pairs)
+    print(f"batch {args.batch} pairs, padded length {ids.shape[1]}")
+    scorer.score_pairs(pairs)  # warm-up
+    torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(args.batches):
+        t0 = time.perf_counter()
+        scorer.score_pairs(pairs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"wall per batch: median {statistics.median(walls):.1f} ms over {len(walls)} "
+          f"({', '.join(f'{w:.1f}' for w in walls)})")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k4_0 = k4.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scorer.score_pairs(pairs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kind = {"K4": 0.0, "GEMM": 0.0, "other": 0.0}
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        by_kind[kind(e.key)] += us / 1e3
+        kernels.append((us / 1e3, e.count, e.key))
+    busy = sum(by_kind.values())
+    print(f"profiled batch: wall {wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}), "
+          f"idle {1 - busy / wall:.1%}; K4 launches {k4.launches - k4_0}")
+    for name, ms in by_kind.items():
+        print(f"  {name}: {ms:.1f} ms ({ms / busy:.1%} of device time)")
+    print("kernels by device time:")
+    for ms, n, name in sorted(kernels, reverse=True)[:12]:
+        print(f"  {ms:9.2f} ms  {n:5d}x  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
