@@ -7,7 +7,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
 
 0. environment: Python/torch/CUDA versions, the card's ``nvidia-smi`` name
    and power limit, ``nvcc``, and which of yaml/jieba/transformers import;
-1. build the four CUDA kernels from ``easyrag_tpu_torch/csrc``, one ``nvcc``
+1. build the five CUDA kernels from ``easyrag_tpu_torch/csrc``, one ``nvcc``
    per source, all started together; print each one's registers and spills;
 2. each kernel against its plain PyTorch version on the card: K1
    (``flash64_attention``) at B=4, S=1064, H=36 with and without RoPE on
@@ -56,7 +56,24 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    run 28 times per 32-pair batch. Then a 2-layer cut (compression at 1,
    cutoff 2) on the card against the CPU in f32 on eight pairs drawn from the
    seed, each score within a tenth of the score's scale, and the peak
-   device memory.
+   device memory;
+7. the dense route: ``DenseIndex`` at 20,000 x 3584 in bf16 and int8, 32
+   queries' top-288 against the float64 (bf16) or exact integer (int8) host
+   ranking, the dir filter and ``query_stream``; then gte-Qwen2-7B-instruct
+   at full width and depth (28 layers, hidden 3584, 28 heads on 4, vocab
+   151,646; random bf16 weights from a seeded ``torch.Generator``) injected
+   into ``EasyRAGPipeline`` with ``retrieval_type: 3``,
+   ``rerank_fusion_type: 1`` and phase 3's MiniCPM reranker over the first
+   1,024 files of phase 3's corpus. Launch counts are reset just before the
+   boot and read just after the three queries: the boot embeds and indexes
+   the files (K3 must run), phase 3's three queries run (K3 and K1 on every
+   query). A reboot from the saved index embeds nothing and gives the same
+   nodes; a 2-layer cut on the card against the CPU in f32 (relative L2 of
+   each embedding within 5e-2). Then K3 against its plain version at the
+   shapes and right padding the boot and the queries gave it (every
+   index-build batch, B=128, S=2048, with the plain version over 8-row
+   slices; each query at B=1), and at B=32, S=1024, B=8, S=2048 and B=1,
+   S=128, ragged; and the peak device memory.
 
 Every kernel's entry in the JSON line carries its bound at the timed shape
 (the larger of its operations over the card's peak for their type and its
@@ -67,8 +84,9 @@ and, where one PyTorch call computes the same function, that call's time
 none unpacks int4 for K2).
 
 Prints its total seconds, one JSON line of kernel results (K1's and K5's
-times at the pipeline's shapes, K2's gateup's at R=1, K3's at B=1, S=7680,
-K4's at B=32, S=1152), the ``nvidia-smi`` line, and last
+times at the pipeline's shapes, K2's gateup's at R=1, K3's at both call
+sites: the prefill's at B=1, S=7680 and the embedder's at the boot's first
+index-build batch, K4's at B=32, S=1152), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -145,6 +163,19 @@ GEMMA_CUTOFF, GEMMA_COMPRESS, GEMMA_START = 28, (24, 40), 8
 # K4 vs plain, per 256-wide head row: K1's rule (the same rounding of the
 # unnormalised probabilities)
 K4_ROW_RTOL = 1.6e-2
+# Alibaba-NLP/gte-Qwen2-7B-instruct's config.json
+GTE_QWEN2_7B = dict(
+    vocab_size=151_646, hidden_size=3584, intermediate_size=18_944, num_hidden_layers=28,
+    num_attention_heads=28, num_key_value_heads=4, rope_theta=1e6, rms_norm_eps=1e-6, attention_bias=True,
+)
+DENSE_DOCS = 1024  # files of phase 3's corpus the dense pipeline embeds (all 20,000 take ~8-9 min)
+INDEX_ROWS = 20_000  # configs/four_tenant.yaml:16, "dense cosine 20k x 3584 bf16"
+INDEX_QUERIES = 32
+# the index's device top-k against the float64 host ranking: scores at each
+# rank within this of the host's (f32 sums of 3584 exact products), so ids
+# may differ only among docs this close
+DENSE_TIE_ATOL = 1e-5
+EMB_REL_TOL = GEN_REL_TOL  # bf16 card vs f32 CPU, 2 embedder layers, relative L2 of each embedding
 # the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -178,11 +209,12 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_BF16):
 
 
 def causal_pairs(np, S: int, start, end) -> int:
-    """(query, key) pairs an attention computes: for every query row ``i`` of
-    every batch row, the keys ``j <= i`` inside ``[start, end)``."""
+    """(query, key) pairs an attention needs: for every real query row ``i``
+    of every batch row (``start <= i < end``), the keys ``j <= i`` inside
+    ``[start, end)``. Pad rows are read by nothing and count nothing."""
     i = np.arange(S)[None, :]
     lo, hi = np.asarray(start)[:, None], np.asarray(end)[:, None]
-    return int(np.clip(np.minimum(i, hi - 1) - lo + 1, 0, None).sum())
+    return int(np.where((i >= lo) & (i < hi), i - lo + 1, 0).sum())
 
 
 def cuda_ms(torch, fn, reps=10, warmup=2) -> float:
@@ -392,28 +424,46 @@ def k2_compare(torch, k2, x, w, scale):
     return got, float(diff.max()), ratio
 
 
-def k3_case(torch, gen, B, S, lengths):
+def k3_case(torch, gen, B, S, lengths, side="left"):
+    """Qwen2-7B-shaped K3 inputs (28 query heads of 128 on 4 KV heads), each
+    row padded to its own length: on the left as the generator's prefill
+    pads, on the right as the gte-Qwen2 embedder pads."""
     dev = torch.device("cuda")
     q = torch.randn(B, S, 28 * 128, generator=gen, device=dev).to(torch.bfloat16)
     k, v = (torch.randn(B, S, 4 * 128, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-    kv_s = torch.tensor([S - n for n in lengths], dtype=torch.int32, device=dev)
-    kv_e = torch.full((B,), S, dtype=torch.int32, device=dev)
+    n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    full = torch.full((B,), S, dtype=torch.int32, device=dev)
+    kv_s, kv_e = (S - n, full) if side == "left" else (torch.zeros_like(n), n)
     return (q, k, v, kv_s, kv_e, 128 ** -0.5, 4)
 
 
-def k3_compare(torch, k3, args):
+def k3_plain_slices(k3, args, rows):
+    """K3's plain version on ``args`` in slices of ``rows`` batch rows (its
+    materialised f32 scores of a whole index-build batch would not fit)."""
+    q, k, v, kv_s, kv_e, scale, nkv = args
+    for lo in range(0, q.shape[0], rows):
+        sl = slice(lo, lo + rows)
+        yield sl, k3.flash_attention_plain(q[sl], k[sl], v[sl], kv_s[sl], kv_e[sl], scale, nkv)
+
+
+def k3_compare(torch, k3, args, rows=None):
+    """K3 against its plain version on the real rows, per 128-wide head row;
+    the plain version runs over slices of ``rows`` batch rows when given."""
     got = k3.flash_attention(*args)
-    ref = k3.flash_attention_plain(*args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got.float()).all()), "K3 output has non-finite values (pad rows included)")
-    q, _, _, kv_s = args[:4]
-    real = torch.arange(q.shape[1], device=q.device)[None, :] >= kv_s[:, None]
-    g, r = (t.float()[real].reshape(-1, 128) for t in (got, ref))
-    diff = (g - r).abs()
-    bound = r.abs().amax(dim=1, keepdim=True)
-    row_rel = float((diff / bound.clamp_min(1e-30)).max())
-    check(bool((diff <= K3_ROW_RTOL * bound).all()), f"K3 disagrees with its plain version ({row_rel:.3e} of the row)")
-    return float(diff.max()), row_rel
+    q, _, _, kv_s, kv_e = args[:5]
+    pos = torch.arange(q.shape[1], device=q.device)[None, :]
+    real = (pos >= kv_s[:, None]) & (pos < kv_e[:, None])
+    err = row_rel = 0.0
+    for sl, ref in k3_plain_slices(k3, args, rows or q.shape[0]):
+        g, r = (t.float()[real[sl]].reshape(-1, 128) for t in (got[sl], ref))
+        diff = (g - r).abs()
+        bound = r.abs().amax(dim=1, keepdim=True)
+        err, row_rel = max(err, float(diff.max())), max(row_rel, float((diff / bound.clamp_min(1e-30)).max()))
+        check(bool((diff <= K3_ROW_RTOL * bound).all()), f"K3 disagrees with its plain version ({row_rel:.3e} of the row)")
+        del ref, g, r, diff
+    return err, row_rel
 
 
 def sdpa_ms(torch, q, k, v, nh, nkv, kv_s, kv_e, scale, cos=None, sin=None):
@@ -688,7 +738,7 @@ def phase_pipeline(torch, np, f64, k5, tmp):
     ids, mask = scorer.build_inputs(batch)
     idx = pipeline.sparse_retriever.index
     long_ids, _ = idx.gather_postings(idx.query_term_ids(long_tokens), pad_to=cfg.tpu.max_query_postings, bucket=True)
-    return pipeline, queries, launches, mask, len(long_ids)
+    return pipeline, reranker, queries, launches, mask, len(long_ids)
 
 
 def phase_main_shapes(torch, np, f64, k5, mask, P):
@@ -1141,6 +1191,355 @@ def phase_gemma(torch, np, pipeline, queries, mods):
     return launches, err, k4_times, rel
 
 
+class EmbedCharTokenizer:
+    """One token per character on the embedder's vocabulary (no checkpoint
+    vocabulary is in the repository), with the HF batch call
+    ``GTEEmbedder`` makes: padding on the right to the longest row,
+    truncation, numpy arrays. ``lengths`` keeps the real lengths of every
+    batch it tokenized, in order."""
+
+    padding_side = "right"
+
+    def __init__(self, vocab: int) -> None:
+        self.vocab = vocab
+        self.lengths = []
+
+    def __call__(self, texts, max_length=None, padding=True, truncation=True, return_tensors="np"):
+        import numpy as np
+
+        rows = [[ord(c) % (self.vocab - 2) + 2 for c in t][:max_length] for t in texts]
+        self.lengths.append([len(r) for r in rows])
+        ids = np.zeros((len(rows), max(len(r) for r in rows)), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+
+def build_embedder(torch, seed):
+    """gte-Qwen2-7B-instruct at full width and depth on the card: random bf16
+    weights and QKV biases (std 0.02, norms 1) from a seeded generator; K3
+    runs in every layer at ``S % 128 == 0`` (head_dim 128)."""
+    from easyrag_tpu_torch.models.layers import DecoderConfig
+
+    cfg = DecoderConfig(**GTE_QWEN2_7B)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, inter, hd = cfg.hidden_size, cfg.intermediate_size, cfg.hd
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+
+    def ones():
+        return torch.ones(d, device=dev, dtype=torch.bfloat16)
+
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        attn = {n: {"w": rnd(out, d), "b": rnd(out)} for n, out in (("q", nh * hd), ("k", nkv * hd), ("v", nkv * hd))}
+        attn["o"] = {"w": rnd(d, nh * hd)}
+        mlp = {"gate": {"w": rnd(inter, d)}, "up": {"w": rnd(inter, d)}, "down": {"w": rnd(d, inter)}}
+        layers.append({"input_norm": ones(), "attn": attn, "mlp": mlp, "post_norm": ones()})
+    return cfg, {"embed": rnd(cfg.vocab_size, d), "layers": layers, "final_norm": ones()}
+
+
+def k3_path_shapes(embedder, lengths):
+    """``(B, S, lengths)`` of the K3 launches behind batches of these real
+    lengths, padded as ``GTEEmbedder._embed`` pads them: to the batch and
+    sequence buckets, on the right, batch-padding rows one token long. A
+    batch in the 64 bucket takes the einsum path and is left out."""
+    from easyrag_tpu_torch.models.qwen2 import SEQ_BUCKETS, _bucket
+
+    shapes = []
+    for lens in lengths:
+        s = _bucket(max(lens), [x for x in SEQ_BUCKETS if x <= embedder.max_length])
+        b = _bucket(len(lens), embedder.batch_buckets)
+        if s % 128 == 0:
+            shapes.append((b, s, list(lens) + [1] * (b - len(lens))))
+    return shapes
+
+
+def k3_embedder_cases(torch, np, k3, boot, queries):
+    """K3 against its plain version at the embedder's shapes, right padded:
+    every batch of the boot's index build and each query (``boot`` and
+    ``queries``, from :func:`k3_path_shapes`), then B=32, S=1024 and B=8,
+    S=2048 (ragged, one row full and one 40 long) and B=1, S=128. The plain
+    version runs over 8-row slices of a batch (a whole index-build batch's
+    materialised scores would not fit). Times of the kernel, of the plain
+    version over the same slices and of SDPA (CUDA events) and the bound over
+    the real rows, at the first boot batch and each other shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rng = np.random.default_rng(SEED + 10)
+    cases = [("boot", *c) for c in boot] + [("query", *c) for c in queries]
+    for B, S in ((32, 1024), (8, 2048), (1, 128)):
+        lengths = rng.integers(S * 6 // 10, S + 1, size=B).tolist()
+        lengths[0] = S if B > 1 else 100
+        lengths[-1] = 40 if B > 1 else lengths[0]
+        cases.append(("ragged", B, S, lengths))
+    err, times = 0.0, {}
+    for kind, B, S, lengths in cases:
+        args = k3_case(torch, gen, B, S, lengths, side="right")
+        rows = min(B, 8)
+        e, row_rel = k3_compare(torch, k3, args, rows)
+        err = max(err, e)
+        head = (f"K3 embedder {kind} B={B} S={S} right-padded (lengths {min(lengths)}-{max(lengths)}): "
+                f"max_abs_err {e:.3e} (row-relative {row_rel:.3e}), all finite")
+        if (kind, B, S) in times:  # one time per shape
+            say(head)
+            del args
+            continue
+
+        def plain_call():
+            for _ in k3_plain_slices(k3, args, rows):
+                pass
+
+        ms = cuda_ms(torch, lambda: k3.flash_attention(*args), reps=5)
+        plain = cuda_ms(torch, plain_call, reps=2, warmup=1)
+        q, k, v, kv_s, kv_e, scale, nkv = args
+        flop = 4 * 28 * 128 * causal_pairs(np, S, kv_s.cpu().numpy(), kv_e.cpu().numpy())
+        b3 = bound(flop, 2 * q.nbytes + k.nbytes + v.nbytes)
+        lib = sdpa_ms(torch, q, k, v, 28, nkv, kv_s, kv_e, scale)
+        times[(kind, B, S)] = (ms, plain, *b3, lib)
+        say(f"{head}; kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s on real rows), plain {plain:.3f} ms "
+            f"({-(-B // rows)} slice(s) of {rows} rows), SDPA {lib:.3f} ms; bound {b3[0]:.4f} ms ({b3[1]})")
+        del args, q, k, v
+        torch.cuda.empty_cache()
+    return err, times
+
+
+def dense_index_checks(torch, np):
+    """``DenseIndex`` at the deployment's size (20,000 x 3584, four dirs),
+    bf16 and int8: 32 queries' top-288 against the float64 (bf16) or exact
+    integer (int8) host ranking, the dir filter, ``query_stream`` against
+    row-wise ``query``, and ms per query and per 64-query stream."""
+    from easyrag_tpu_torch.index.dense import DenseIndex, l2_normalize
+
+    rng = np.random.default_rng(SEED + 9)
+    d, k = GTE_QWEN2_7B["hidden_size"], 288
+    emb = rng.standard_normal((INDEX_ROWS, d), dtype=np.float32)
+    dirs = [("director", "emsplus", "rcp", "umac")[i % 4] for i in range(INDEX_ROWS)]
+    # half the queries near a row (a clear top hit), half random
+    near = rng.choice(INDEX_ROWS, size=INDEX_QUERIES // 2, replace=False)
+    queries = np.concatenate([
+        emb[near] + 0.5 * rng.standard_normal((len(near), d), dtype=np.float32),
+        rng.standard_normal((INDEX_QUERIES - len(near), d), dtype=np.float32),
+    ])
+    qn = l2_normalize(queries)
+    times = {}
+    for dtype in ("bfloat16", "int8"):
+        index = DenseIndex.build(emb, dirs=dirs, dtype=dtype)
+        vals, ids = index.query(queries, k)
+        check(vals.shape == (INDEX_QUERIES, k) and np.isfinite(vals).all(), f"{dtype} index: wrong top-k")
+        if dtype == "int8":
+            # the exact integer products (exact in float64: |sums| < 2^53), rescaled in f32 as the index does
+            m8, scales = index.matrix.cpu().numpy(), index.scales.cpu().numpy()
+            qs = (np.abs(qn).max(axis=1, keepdims=True) * np.float32(1 / 127)).astype(np.float32)
+            q8 = np.clip(np.round(qn / np.maximum(qs, np.float32(1e-12))), -127, 127)
+            host = ((q8 @ m8.astype(np.float64).T).astype(np.float32) * qs) * scales[None, :]
+            order = np.argsort(host, axis=1, kind="stable")[:, ::-1][:, :k]
+            check(np.array_equal(ids, order), "int8 index: top-288 differs from the exact host ranking")
+            check(np.array_equal(vals, np.take_along_axis(host, order, 1)), "int8 index: scores differ from the host's")
+            say(f"int8 index: top-{k} of {INDEX_QUERIES} queries equal the exact integer host ranking, ids and "
+                f"score bits")
+        else:
+            mat = index.matrix.float().cpu().numpy().astype(np.float64)
+            qb = torch.from_numpy(qn).to(torch.bfloat16).float().numpy().astype(np.float64)
+            host = qb @ mat.T
+            order = np.argsort(host, axis=1, kind="stable")[:, ::-1][:, :k]
+            true = np.take_along_axis(host, ids, 1)
+            check(all(len(set(r)) == k for r in ids.tolist()), "bf16 index: an id twice in a top-k")
+            check(bool(np.allclose(true, np.take_along_axis(host, order, 1), atol=DENSE_TIE_ATOL, rtol=0)),
+                  "bf16 index: ranking differs from the float64 host's")
+            check(bool(np.allclose(vals, true, atol=DENSE_TIE_ATOL, rtol=0)), "bf16 index: scores differ from the host's")
+            ties = int((ids != order).sum())
+            top1 = float((ids[: len(near), 0] == near).mean())
+            say(f"bf16 index: top-{k} of {INDEX_QUERIES} queries equal the float64 host ranking ({ties} positions "
+                f"differ by a tie within {DENSE_TIE_ATOL}); top-1 is the perturbed row for {top1:.2f} of the near "
+                f"queries")
+        fv, fi = index.query(queries[:4], k, dir_value="rcp")
+        kept = fi[np.isfinite(fv)]
+        check(len(kept) == 4 * min(k, dirs.count("rcp")) and all(dirs[i] == "rcp" for i in kept),
+              f"{dtype} index: the dir filter leaks")
+        uv, ui = index.query(queries[:4], k, dir_value="nope")
+        check(np.isneginf(uv).all() and (ui == INDEX_ROWS).all(), f"{dtype} index: an unknown dir returned rows")
+        sv, si = index.query_stream(queries, k)
+        rows = [index.query(queries[r], k) for r in range(INDEX_QUERIES)]
+        same = all(np.array_equal(sv[r], v[0]) and np.array_equal(si[r], i[0]) for r, (v, i) in enumerate(rows))
+        check(same and np.array_equal(sv, vals), f"{dtype} index: query_stream differs from row-wise query")
+        q64 = np.concatenate([queries, queries])
+        one = cuda_ms(torch, lambda: index.query(queries[:1], k))
+        stream = cuda_ms(torch, lambda: index.query_stream(q64, k))
+        times[dtype] = (one, stream)
+        say(f"{dtype} index {INDEX_ROWS} x {d}: dir filter keeps only its dir, an unknown dir returns nothing, "
+            f"query_stream equals row-wise query bit for bit; {one:.3f} ms per query, {stream:.3f} ms per "
+            f"64-query stream (host clock around each call, transfers included)")
+        del index
+    torch.cuda.empty_cache()
+    return times
+
+
+def sub_corpus(src: str, dst: str, n: int) -> None:
+    """The files ``doc0`` .. ``doc{n-1}`` of ``write_corpus``'s corpus at
+    ``src``, with their part of its ``pathmap.json``, copied to ``dst``."""
+    import shutil
+
+    with open(os.path.join(src, "pathmap.json"), encoding="utf-8") as fh:
+        pathmap = json.load(fh)
+    keep = {rel: v for rel, v in pathmap.items() if int(rel.split("/doc")[1][:-4]) < n}
+    for rel in keep:
+        os.makedirs(os.path.dirname(os.path.join(dst, rel)), exist_ok=True)
+        shutil.copyfile(os.path.join(src, rel), os.path.join(dst, rel))
+    with open(os.path.join(dst, "pathmap.json"), "w", encoding="utf-8") as fh:
+        json.dump(keep, fh)
+
+
+def embedder_vs_cpu(torch, np, cfg, params, tokenizer):
+    """A 2-layer cut of the card's embedder tree in bf16 on the card against
+    the same cut in f32 on the CPU, on eight seeded texts of 100-120
+    characters (the 128 bucket, so K3 runs on the card): the relative L2 of
+    each normalized embedding."""
+    from easyrag_tpu_torch.models.qwen2 import GTEEmbedder
+
+    cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
+    cut = {**params, "layers": params["layers"][:2]}
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.float().cpu()
+
+    rng = np.random.default_rng(SEED + 11)
+    texts = [" ".join(f"t{w}" for w in rng.integers(0, VOCAB, size=40))[: int(rng.integers(100, 121))] for _ in range(8)]
+    card = GTEEmbedder(cut_cfg, cut, tokenizer).get_text_embeddings(texts)
+    cpu = GTEEmbedder(cut_cfg, to_cpu(cut), tokenizer, device="cpu").get_text_embeddings(texts)
+    rel = np.linalg.norm(card - cpu, axis=1) / np.linalg.norm(cpu, axis=1)
+    say(f"embedder, 2 layers, card bf16 vs CPU f32 on 8 texts: relative L2 per embedding {rel.min():.3e}-"
+        f"{rel.max():.3e} (bound {EMB_REL_TOL})")
+    check(np.isfinite(card).all() and bool((rel <= EMB_REL_TOL).all()), "the embedder disagrees with the CPU reference")
+    return float(rel.max())
+
+
+def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
+    say("== phase 7: the dense route (gte-Qwen2-7B-instruct, K3 at layers.attention, cosine index, RRF)")
+    import gc
+
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.models.qwen2 import GTEEmbedder
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+    from easyrag_tpu_torch.utils import events
+
+    k1, k3 = mods["K1"], mods["K3"]
+    # the generator and the Gemma reranker are not on this path
+    pipeline.llm, pipeline.reranker = StubLLM(), None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dense_index_checks(torch, np)
+
+    t0 = time.perf_counter()
+    cfg, params = build_embedder(torch, SEED + 12)
+    torch.cuda.synchronize()
+    tokenizer = EmbedCharTokenizer(cfg.vocab_size)
+    embedder = GTEEmbedder(cfg, params, tokenizer, embed_type=1)
+    say(f"embedder: {tree_bytes(params) / 2**30:.2f} GiB of bf16 weights on the card, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    data = os.path.join(tmp, "dense_corpus")
+    sub_corpus(tmp, data, DENSE_DOCS)
+    pcfg = load_config(os.path.join(REPO, "configs", "easyrag.yaml"), overrides={
+        "data_path": data, "retrieval_type": 3, "rerank_fusion_type": 1, "cache_path": os.path.join(tmp, "cache"),
+    })
+
+    def boot():
+        return EasyRAGPipeline(
+            pcfg, llm=StubLLM(), embed_model=embedder, reranker=reranker, sparse_tokenizer=SparseTokenizer(),
+            splitter=SentenceSplitter(pcfg.chunk_size, pcfg.chunk_overlap, token_counter=approx_token_count,
+                                      sentence_splitter=lambda t: [t]),
+            device=torch.device("cuda"),
+        )
+
+    # the main path is the boot (the index build) and the three queries:
+    # the counts are reset just before the one and read just after the other
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    dense = boot()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st, boot_k3 = dict(embedder.stats), k3.launches
+    boot_lengths = list(tokenizer.lengths)
+    n = len(dense.nodes)
+    check(n == DENSE_DOCS and dense.dense_retriever.index.num_docs == n, f"expected {DENSE_DOCS} indexed chunks, got {n}")
+    check(boot_k3 > 0, "K3 did not run during the index build")
+    say(f"boot: {n} chunks embedded in {st['batches']} batches and indexed in {secs:.1f} s: {st['tokens']} real tokens "
+        f"({st['tokens'] / secs:.0f}/s), {st['padded_tokens']} padded ({st['padded_tokens'] / secs:.0f}/s); "
+        f"K3 launches {boot_k3}")
+
+    candidates, stages = [], []
+
+    def listen(kind, payload):
+        if kind == "reranking" and "candidates" in payload:
+            candidates[-1].append(payload["candidates"])
+        elif kind == "timing":
+            stages.append((payload["name"], payload["seconds"] * 1e3))
+
+    unsubscribe = events.on(listen)
+    results = []
+    for name, q, _ in queries:
+        candidates.append([])
+        before, k1_0, k3_0 = embedder.stats["batches"], k1.launches, k3.launches
+        t = time.perf_counter()
+        out = asyncio.run(dense.run(dict(q)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        split = {}
+        for key, v in stages:
+            split[key] = split.get(key, 0.0) + v
+        results.append((name, out, ms, k1.launches - k1_0, k3.launches - k3_0, embedder.stats["batches"] - before, split))
+        stages.clear()
+    launches = {key: mod.launches for key, mod in mods.items()}
+    unsubscribe()
+    for (name, out, ms, dk1, dk3, embedded, split), cand in zip(results, candidates, strict=True):
+        parts = ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        say(f"query {name!r}: {ms:.1f} ms ({parts}); candidates (dense, sparse) {cand}; K1 launches {dk1}, "
+            f"K3 launches {dk3}; top-6 {[x.node.idx for x in out['nodes']]}")
+        check(embedded == 1 and dk1 > 0 and dk3 > 0, f"query {name!r}: the query was not embedded through K3 or reranked through K1")
+        check(len(out["nodes"]) == pcfg.r_topk_1 and len(out["contexts"]) == pcfg.r_topk_1, f"query {name!r}: wrong result size")
+        check(all(np.isfinite(x.score) and x.score > 0 for x in out["nodes"]), f"query {name!r}: bad fused score")
+        check(out["answer"] == "无法确定", f"query {name!r}: unexpected answer")
+    query_lengths = tokenizer.lengths[len(boot_lengths):]
+    say(f"launches over the boot and the three queries: {launches} (K3 {boot_k3} in the boot, "
+        f"{launches['K3'] - boot_k3} in the queries)")
+
+    before = dict(embedder.stats)
+    t0 = time.perf_counter()
+    again = boot()
+    secs = time.perf_counter() - t0
+    check(embedder.stats == before, "the reboot embedded the corpus again")
+    check([x.text for x in again.nodes] == [x.text for x in dense.nodes], "the reboot gave other nodes")
+    check(torch.equal(again.dense_retriever.index.matrix, dense.dense_retriever.index.matrix), "the reboot gave another index")
+    say(f"reboot from the saved index: {secs:.1f} s, nothing embedded, the same {n} nodes and index bits")
+    del again, dense
+    gc.collect()
+
+    embedder_vs_cpu(torch, np, cfg, params, tokenizer)
+    # K3 at the shapes and paddings the boot and the queries gave it
+    boot_shapes = k3_path_shapes(embedder, boot_lengths)
+    query_shapes = k3_path_shapes(embedder, query_lengths)
+    check(len(boot_shapes) == st["batches"] and len(query_shapes) == len(queries),
+          "a batch of the main path did not reach K3's gate")
+    del embedder, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3_err, k3_times = k3_embedder_cases(torch, np, k3, boot_shapes, query_shapes)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"peak device memory in phase 7: {peak:.2f} GiB")
+    return launches, k3_err, k3_times, ("boot", *boot_shapes[0][:2])
+
+
 def main() -> int:
     try:
         import torch
@@ -1175,11 +1574,12 @@ def main() -> int:
         errs = phase_kernels(torch, f64, k5)
         new_errs, new_times, extra = phase_new_kernels(torch, np, k2, k3)
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
-            pipeline, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, tmp)
+            pipeline, minicpm, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, tmp)
             timings = phase_main_shapes(torch, np, f64, k5, mask, P)
             gen_launches, _ = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
             mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5}
             gemma_launches, k4_err, k4_times, _ = phase_gemma(torch, np, pipeline, queries, mods)
+            dense_launches, k3e_err, k3e_times, k3e_main = phase_dense(torch, np, tmp, pipeline, minicpm, queries, mods)
         loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
         check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:
@@ -1203,6 +1603,8 @@ def main() -> int:
               new_errs["K3"], *new_times[("K3", 1, 7680)], *extra["K3"]),
         entry("flash_softcap_attention", "flash_softcap.cu", "easyrag_tpu/ops/flash_softcap.py:136",
               gemma_launches["K4"], k4_err, *k4_times[(32, 1152)]),
+        entry("flash_attention", "flash_attention.cu", "easyrag_tpu/models/layers.py:351", dense_launches["K3"],
+              k3e_err, *k3e_times[k3e_main]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

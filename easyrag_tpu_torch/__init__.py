@@ -5,7 +5,10 @@ The default RAG path (``EasyRAGPipeline.run(query)`` on
 ``configs/easyrag.yaml``): the dual BM25 route resident on the card, content
 fusion, a layerwise reranker (MiniCPM, or the Gemma2 cost-wise reranker with
 token compression) and the QA prompt, answered by an injected LLM or the
-on-device Qwen2 generator. The package keeps its own copy of the host code it
+on-device Qwen2 generator. The dense route (``retrieval_type`` 1 or 3 with
+an injected gte-Qwen2 embedder, ``models/qwen2.py``): the flat cosine index
+(``index/dense.py``), and with ``rerank_fusion_type`` 1-3 both routes
+reranked and fused by reciprocal rank fusion. The package keeps its own copy of the host code it
 needs (config, schema, corpus, templates, ``LLMRerank``, generation, event
 hooks) and imports nothing of ``easyrag_tpu`` and nothing of ``jax``. Every
 TPU kernel on these paths is a hand-written CUDA kernel under ``csrc/``
@@ -13,7 +16,8 @@ TPU kernel on these paths is a hand-written CUDA kernel under ``csrc/``
 
 * ``ops/flash64.py`` — causal head_dim-64 attention (``easyrag_tpu`` K1);
 * ``ops/int4_matvec.py`` — the int4 decode matvec (K2);
-* ``ops/flash_attention.py`` — causal GQA prefill attention (K3);
+* ``ops/flash_attention.py`` — causal GQA attention (K3): the generator's
+  prefill and the embedder's layers;
 * ``ops/flash_softcap.py`` — softcapped GQA attention, head_dim 256 (K4);
 * ``ops/bm25_scatter.py`` — the BM25 postings scatter (K5).
 

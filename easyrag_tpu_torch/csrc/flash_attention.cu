@@ -1,17 +1,19 @@
 // Causal grouped-query attention at head_dim 128 with a per-row key range.
 //
 // Replaces the stock Pallas TPU flash_attention
-// (jax.experimental.pallas.ops.tpu.flash_attention, K3) as
-// easyrag_tpu/models/decode.py::_prefill_layer calls it: the prompt prefill
-// of the Qwen2 generator, causal, with left padding given as segment ids
-// (pad 0, real 1). What differs from that call:
+// (jax.experimental.pallas.ops.tpu.flash_attention, K3) at both of its
+// call sites: easyrag_tpu/models/decode.py::_prefill_layer (the prompt
+// prefill of the Qwen2 generator, left padding) and
+// easyrag_tpu/models/layers.py:351 (every layer of the gte-Qwen2 embedder,
+// right padding), causal, with the padding given as segment ids (pad 0,
+// real 1). What differs from those calls:
 //
 //   * layout: q is [B, S, NH*128] and k, v are [B, S, NKV*128], the
 //     projections' own layout, so nothing is transposed; query head h reads
 //     KV head h / (NH/NKV) directly, so K/V are never repeated;
 //   * padding: keys outside [kv_start[b], kv_end[b]) are masked (left
-//     padding is kv_start = S - length, kv_end = S); RoPE is applied on the
-//     host first, since prefill positions are per row;
+//     padding is kv_start = S - length, kv_end = S; right padding
+//     kv_start = 0, kv_end = length); RoPE is applied on the host first;
 //   * masked logits are finfo(f32).min, never -inf, so every output is
 //     finite: a query row whose visited keys are all masked averages them,
 //     and a row that visits no key tile at all (a pad row whose causal

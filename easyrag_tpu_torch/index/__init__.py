@@ -1,1 +1,2 @@
-"""Host-side index structures (numpy)."""
+"""Index structures: the sparse BM25 index (numpy) and the dense cosine
+index (torch)."""

@@ -16,6 +16,7 @@ import torch
 from .gemma import GemmaCostWiseReranker
 from .layers import DecoderConfig
 from .minicpm import MiniCPMLayerWiseReranker
+from .qwen2 import GTEEmbedder
 
 
 def minicpm_from_jax(
@@ -97,3 +98,17 @@ def causal_lm_params_from_jax(params_np: Dict[str, Any], device, dtype: torch.dt
         return leaf(key, node)
 
     return tree("", params_np)
+
+
+def gte_from_jax(
+    cfg: DecoderConfig,
+    params_np: Dict[str, Any],
+    device,
+    dtype: torch.dtype,
+    tokenizer,
+    **embedder_kwargs,
+) -> GTEEmbedder:
+    """A :class:`GTEEmbedder` over a JAX gte-Qwen2 tree (dense, int8 or int4
+    linears; no ``lm_head``), converted by :func:`causal_lm_params_from_jax`."""
+    return GTEEmbedder(cfg, causal_lm_params_from_jax(params_np, device, dtype), tokenizer, device=device,
+                       **embedder_kwargs)

@@ -40,7 +40,7 @@ import torch
 from ..devices import resolve_device
 from ..ops.flash64 import apply_rope
 from ..ops.flash_attention import flash_attention, flash_attention_plain
-from .layers import DecoderConfig, embed, linear, mlp, rms_norm, rope_tables
+from .layers import DecoderConfig, embed, linear, mlp_residual, qkv_proj, rms_norm, rope_tables
 
 Cache = List[Dict[str, torch.Tensor]]
 MASK_VALUE = float(torch.finfo(torch.float32).min)
@@ -66,30 +66,6 @@ def use_flash(hd: int, s: int) -> bool:
     return hd % 128 == 0 and s % 128 == 0
 
 
-def _qkv(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
-    b, s, _ = h.shape
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
-    if "qkv" in p:  # fused int4 projection (quant.fuse_decode_tree): one K2 launch
-        y = linear(h, p["qkv"])
-        qd, kd = nh * hd, nkv * hd
-        return (
-            y[..., :qd].reshape(b, s, nh, hd),
-            y[..., qd : qd + kd].reshape(b, s, nkv, hd),
-            y[..., qd + kd :].reshape(b, s, nkv, hd),
-        )
-    return (
-        linear(h, p["q"]).reshape(b, s, nh, hd),
-        linear(h, p["k"]).reshape(b, s, nkv, hd),
-        linear(h, p["v"]).reshape(b, s, nkv, hd),
-    )
-
-
-def _mlp_residual(cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
-    r = cfg.residual_scale
-    x = x + linear(attn_out, p["attn"]["o"]) * r
-    return x + mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps)) * r
-
-
 def _prefill_layer(
     cfg: DecoderConfig,
     p: Dict[str, Any],
@@ -103,7 +79,7 @@ def _prefill_layer(
     """One decoder layer over the full prompt; K/V land in ``cache[:, :S]``."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
-    q, k, v = _qkv(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     cache["k"][:, :s] = k
@@ -115,7 +91,7 @@ def _prefill_layer(
         q.reshape(b, s, nh * hd), k.reshape(b, s, nkv * hd), v.reshape(b, s, nkv * hd).contiguous(),
         kv_start, kv_end, hd ** -0.5, nkv,
     )
-    return _mlp_residual(cfg, p, x, out)
+    return mlp_residual(cfg, p, x, out)
 
 
 def _attend_cache(
@@ -142,12 +118,12 @@ def _decode_layer(
     sin: torch.Tensor,
     cache: Dict[str, torch.Tensor],
 ) -> torch.Tensor:
-    q, k, v = _qkv(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
-    return _mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, kv_valid[:, None, :], x.dtype))
+    return mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, kv_valid[:, None, :], x.dtype))
 
 
 def _verify_layer(
@@ -163,13 +139,13 @@ def _verify_layer(
     """One decoder layer over a speculative verify block. K/V of every
     position are written first; rejected slots are never marked valid and
     the next block overwrites them."""
-    q, k, v = _qkv(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
     cache["k"][rows, slots] = k
     cache["v"][rows, slots] = v
-    return _mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, allowed, x.dtype))
+    return mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, allowed, x.dtype))
 
 
 def _lm_logits(cfg: DecoderConfig, params: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:

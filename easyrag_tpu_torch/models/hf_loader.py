@@ -143,3 +143,16 @@ def load_decoder_params(
     if heads:
         params["heads"] = heads
     return params
+
+
+def load_qwen2_embedder(model_dir: str, dtype: torch.dtype = torch.bfloat16, quant: str = "", device="cuda"):
+    """gte-Qwen2 checkpoint -> ``(DecoderConfig, params)`` on ``device`` (the
+    card unless the caller asks for the CPU). ``quant``: "", "int8" or
+    "int4" (with an int8 embedding table); "w8a8" and "w4a8" raise
+    (activation quantization, ROADMAP Queue 1, item 4)."""
+    from ..devices import resolve_device
+    from .qwen2 import qwen2_config_from_hf
+
+    device = resolve_device(device)
+    cfg = qwen2_config_from_hf(load_hf_config(model_dir))
+    return cfg, load_decoder_params(model_dir, cfg.num_hidden_layers, dtype=dtype, quant=quant, device=device)

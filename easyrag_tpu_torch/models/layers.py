@@ -14,10 +14,13 @@ Two forms share these pieces:
   positions). Attention goes through the K4 port ``ops/flash_softcap.py``
   for every softcapped config, the K1 port ``ops/flash64.py`` for
   head_dim-64 multi-head attention, the einsum formulation otherwise;
-* the generator's functions over a JAX-layout tree of dicts
-  (:func:`linear`, :func:`mlp`, :func:`embed`), where a linear is dense
-  (``w``), int8 (``w_q``/``scale``) or int4 (``w_p``/``scale``), each with an
-  optional bias ``b``.
+* the functions over a JAX-layout tree of dicts (:func:`linear`,
+  :func:`mlp`, :func:`embed`, :func:`qkv_proj`, :func:`mlp_residual`, and the
+  embedder's :func:`attention`, :func:`decoder_layer`, :func:`forward_hidden`),
+  where a linear is dense (``w``), int8 (``w_q``/``scale``) or int4
+  (``w_p``/``scale``), each with an optional bias ``b``. The generator's
+  prefill (``models/decode.py``) and the gte-Qwen2 embedder
+  (``models/qwen2.py``) share the block's projections and MLP.
 """
 
 from __future__ import annotations
@@ -25,12 +28,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import int4_matvec
 from ..ops.flash64 import apply_rope, flash64_attention, masked_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.flash_softcap import flash_softcap_attention
 from .quant import unpack_int4
 
@@ -75,6 +80,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, gemma: bool = Fa
     normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     w = weight.float()
     return (normed * (1.0 + w if gemma else w)).to(x.dtype)
+
+
+def key_ranges(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``[B, S]`` 0/1 mask whose ones are contiguous per row ->
+    ``(kv_start, kv_end)`` int32; raises on any other mask."""
+    mask = np.asarray(mask) > 0
+    has = mask.any(axis=1)
+    start = np.where(has, np.argmax(mask, axis=1), 0)
+    end = np.where(has, mask.shape[1] - np.argmax(mask[:, ::-1], axis=1), 0)
+    if (mask.sum(axis=1) != end - start).any():
+        raise ValueError("padding mask is not one contiguous run of real tokens per row")
+    return start.astype(np.int32), end.astype(np.int32)
 
 
 def rope_tables(
@@ -212,14 +229,112 @@ def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def mlp(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """SiLU MLP of a tree layer; ``gateup`` is the fused gate+up, split at
-    its midpoint (``quant.fuse_decode_tree`` fuses equal widths only)."""
+    its midpoint (``quant.fuse_decode_tree`` fuses equal widths only). The
+    activation and the product are taken in place in the gate's fresh
+    buffer: at the embedder's largest batch each ``[B, S, intermediate]``
+    buffer is ~10 GB."""
     if "gateup" in p:
         y = linear(x, p["gateup"])
         inter = y.shape[-1] // 2
         gate, up = y[..., :inter], y[..., inter:]
     else:
         gate, up = linear(x, p["gate"]), linear(x, p["up"])
-    return linear(F.silu(gate) * up, p["down"])
+    return linear(F.silu(gate, inplace=True).mul_(up), p["down"])
+
+
+def qkv_proj(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
+    """q ``[B, S, NH, D]`` and k, v ``[B, S, NKV, D]`` of a tree layer's
+    ``attn``; ``qkv`` is the fused int4 projection (one K2 launch)."""
+    b, s, _ = h.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    if "qkv" in p:
+        y = linear(h, p["qkv"])
+        qd, kd = nh * hd, nkv * hd
+        return (
+            y[..., :qd].reshape(b, s, nh, hd),
+            y[..., qd : qd + kd].reshape(b, s, nkv, hd),
+            y[..., qd + kd :].reshape(b, s, nkv, hd),
+        )
+    return (
+        linear(h, p["q"]).reshape(b, s, nh, hd),
+        linear(h, p["k"]).reshape(b, s, nkv, hd),
+        linear(h, p["v"]).reshape(b, s, nkv, hd),
+    )
+
+
+def mlp_residual(cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+    """The rest of a tree layer after attention: output projection and
+    residual, post-norm SiLU MLP and residual (MiniCPM's residual scale)."""
+    r = cfg.residual_scale
+    x = x + linear(attn_out, p["attn"]["o"]) * r
+    return x + mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps)) * r
+
+
+def attention(
+    cfg: DecoderConfig,
+    q: torch.Tensor,  # [B, S, NH, D], before RoPE
+    k: torch.Tensor,  # [B, S, NKV, D]
+    v: torch.Tensor,
+    kv_start: torch.Tensor,  # [B] int32
+    kv_end: torch.Tensor,
+    cos: torch.Tensor,  # [S, D] f32, batch-shared positions
+    sin: torch.Tensor,
+) -> torch.Tensor:
+    """The tree form's attention (``easyrag_tpu/models/layers.py::attention``
+    between the projections), ``[B, S, NH*D]`` before the output projection.
+    Padding is a per-row key range. JAX's gate for the stock kernel
+    (``layers.py:240-245``, ``:321``), on the inputs alone: a head dim that
+    is a multiple of 64 at ``S % 128 == 0`` takes K3, whose CUDA kernel
+    takes head_dim 128 and raises at any other (on the CPU its plain version
+    runs); the einsum formulation runs otherwise (the 64-token bucket of a
+    short query). Query rows outside the
+    key range attend to the range's keys where JAX's segment ids pair them
+    with pad keys; no real row reads a pad row, so real rows agree."""
+    b, s, nh, hd = q.shape
+    nkv = k.shape[2]
+    if cfg.attn_logit_softcapping:
+        raise ValueError("the tree form has no softcap: Gemma2 attention runs through DecoderLayer")
+    scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else hd ** -0.5
+    qh = apply_rope(q, cos[None], sin[None])
+    kh = apply_rope(k, cos[None], sin[None])
+    if hd % 64 == 0 and s % 128 == 0:
+        return flash_attention(
+            qh.reshape(b, s, nh * hd), kh.reshape(b, s, nkv * hd), v.reshape(b, s, nkv * hd).contiguous(),
+            kv_start, kv_end, scale, nkv,
+        )
+    vh = v
+    if nkv != nh:  # grouped-query attention: KV shared over query groups
+        kh = kh.repeat_interleave(nh // nkv, dim=2)
+        vh = v.repeat_interleave(nh // nkv, dim=2)
+    return masked_attention(qh, kh, vh, kv_start, kv_end, scale).reshape(b, s, nh * hd)
+
+
+def decoder_layer(
+    cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, kv_start, kv_end, cos, sin
+) -> torch.Tensor:
+    """One pre-norm tree layer (``layers.py::decoder_layer`` without Gemma)."""
+    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    return mlp_residual(cfg, p, x, attention(cfg, q, k, v, kv_start, kv_end, cos, sin))
+
+
+def forward_hidden(
+    cfg: DecoderConfig,
+    params: Dict[str, Any],
+    input_ids: torch.Tensor,  # [B, S]
+    attention_mask: torch.Tensor,  # [B, S], one contiguous run of ones per row
+) -> torch.Tensor:
+    """The decoder stack over a tree (``layers.py::forward_hidden``): the
+    final-normed hidden state ``[B, S, D]``, positions ``0..S-1`` shared by
+    the batch."""
+    if cfg.gemma:
+        raise ValueError("the tree form has no Gemma2 block: it runs through DecoderLayer")
+    dev = input_ids.device
+    cos, sin = rope_tables(input_ids.shape[1], cfg.hd, cfg.rope_theta, device=dev)
+    kv_start, kv_end = (torch.from_numpy(a).to(dev) for a in key_ranges(attention_mask.cpu().numpy()))
+    h = embed(cfg, params["embed"], input_ids, params["final_norm"].dtype)
+    for idx in range(cfg.num_hidden_layers):
+        h = decoder_layer(cfg, params["layers"][idx], h, kv_start, kv_end, cos, sin)
+    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
 
 
 def embed(

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ..devices import resolve_device
-from .layers import DecoderConfig, DecoderLayer, embed, init_random_, rms_norm, rope_tables
+from .layers import DecoderConfig, DecoderLayer, embed, init_random_, key_ranges, rms_norm, rope_tables
 
 PROMPT = (
     "Given a query A and a passage B, determine whether the passage "
@@ -35,18 +35,6 @@ PROMPT = (
 def last_real_index(mask: np.ndarray) -> np.ndarray:
     """Per-row index of the last real token (either padding side)."""
     return (mask.shape[1] - 1 - np.argmax(mask[:, ::-1], axis=1)).astype(np.int64)
-
-
-def key_ranges(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """``[B, S]`` 0/1 mask whose ones are contiguous per row ->
-    ``(kv_start, kv_end)`` int32; raises on any other mask."""
-    mask = np.asarray(mask) > 0
-    has = mask.any(axis=1)
-    start = np.where(has, np.argmax(mask, axis=1), 0)
-    end = np.where(has, mask.shape[1] - np.argmax(mask[:, ::-1], axis=1), 0)
-    if (mask.sum(axis=1) != end - start).any():
-        raise ValueError("padding mask is not one contiguous run of real tokens per row")
-    return start.astype(np.int32), end.astype(np.int32)
 
 
 class MiniCPMLayerWiseReranker(nn.Module):

@@ -1,11 +1,14 @@
-"""Causal grouped-query prefill attention (the port of ``easyrag_tpu`` K3, the
-stock Pallas TPU ``flash_attention`` as ``models/decode.py::_prefill_layer``
-calls it).
+"""Causal grouped-query attention (the port of ``easyrag_tpu`` K3, the stock
+Pallas TPU ``flash_attention``) at both of its call sites:
+``models/decode.py::_prefill_layer`` (the generator's prefill, left padding,
+per-row RoPE positions) and ``models/layers.py::attention`` (every layer of
+the gte-Qwen2 embedder, right padding, batch-shared positions).
 
 ``flash_attention(q, k, v, kv_start, kv_end, sm_scale, num_kv_heads)`` takes
 q ``[B, S, NH*D]`` and k/v ``[B, S, NKV*D]`` (the projections' layout, RoPE
 already applied) and a per-row range of valid keys ``[kv_start[b],
-kv_end[b])``; left padding is ``kv_start = S - length``. Query head ``h``
+kv_end[b])``; left padding is ``kv_start = S - length``, right padding
+``kv_start = 0, kv_end = length``. Query head ``h``
 reads KV head ``h // (NH // NKV)``. Logits and softmax are f32; masked logits
 are ``finfo(f32).min``, so every output is finite, pad rows included.
 
@@ -90,7 +93,7 @@ def flash_attention(
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if hd != HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIM}, got {hd}")
+        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIM}, got {hd} (other head dims: ROADMAP Queue 2, K3)")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     if kv_start.dtype != torch.int32 or kv_end.dtype != torch.int32:

@@ -1,16 +1,24 @@
-"""EasyRAGPipeline on the default route (port of ``easyrag_tpu/pipeline.py``).
+"""EasyRAGPipeline (port of ``easyrag_tpu/pipeline.py``).
 
-``run(query)`` mirrors the reference's ``generation_with_knowledge_retrieval``
-(``pipeline.py:351-391``): content BM25 (top ``f_topk_2``) and know-path BM25
-(top ``f_topk_3``), both resident on the device and scored together for the
-query, content fusion, the injected reranker (``LLMRerank`` over the port's
-MiniCPM or Gemma2 scorer), the top contexts into the QA template, and
-generation. The answer comes from the injected LLM, or, with
-``local_llm_name`` and ``tpu.local_llm_answer``, from the on-device generator
+``run(query)`` with ``rerank_fusion_type`` 0 mirrors the reference's
+``generation_with_knowledge_retrieval`` (``pipeline.py:351-391``): content
+BM25 (top ``f_topk_2``) and know-path BM25 (top ``f_topk_3``), both resident
+on the device and scored together for the query, content fusion, the
+injected reranker (``LLMRerank`` over the port's MiniCPM or Gemma2 scorer),
+the top contexts into the QA template, and generation. With
+``rerank_fusion_type`` 1-3 it mirrors ``generation_with_rerank_fusion``
+(:393-452): the injected gte-Qwen2 embedder embeds the query, the dense
+cosine index (top ``f_topk_1``) and content BM25 are queried, each route is
+reranked on its own, and reciprocal rank fusion keeps ``r_topk_1`` contexts
+for one answer (type 1), or each route answers and the longer answer (2) or
+both (3) are returned. ``retrieval_type`` 1 or 3 builds the dense index at
+boot (or reloads its artifact from ``cache_path/collection_name``); as in
+JAX, ``rerank_fusion_type`` 0 never queries it (ROADMAP Queue 3). The answer
+comes from the injected LLM, or, with ``local_llm_name`` and
+``tpu.local_llm_answer``, from the on-device generator
 (``models/decode.py::TorchCausalLM``) behind ``generation.BatchingLocalLLM``,
-as ``easyrag_tpu/pipeline.py:99-127`` wires it. Every other route or option
-of the config raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+as ``easyrag_tpu/pipeline.py:99-127`` wires it. Every other option of the
+config raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .config import EasyRAGConfig
@@ -28,19 +37,21 @@ from .corpus.tokenizer import JiebaTokenizer, default_stopwords, load_stopwords
 from .corpus.views import get_node_content
 from .devices import resolve_device
 from .generation import BatchingLocalLLM, CompletionResponse, OpenAICompatLLM, generation
+from .index.dense import DenseIndex
 from .ops.bm25_resident import DualResidentScorer
-from .retrievers import BM25Retriever, HybridRetriever
+from .retrievers import BM25Retriever, DenseRetriever, HybridRetriever
 from .schema import NodeWithScore, QueryBundle, build_nodeid2idx
 from .templates import MERGE_TEMPLATE, QA_TEMPLATE, PromptTemplate
 from .utils.events import emit, trace
 
 
-def _check_supported(cfg: EasyRAGConfig, reranker) -> None:
-    """The slice ports the default route only; say which ROADMAP item
-    covers anything else."""
+def _check_supported(cfg: EasyRAGConfig, reranker, embed_model) -> None:
+    """Say which ROADMAP item covers an option the port does not have yet."""
+    if cfg.rerank_fusion_type != 0 and cfg.retrieval_type == 2:
+        raise ValueError(f"rerank_fusion_type={cfg.rerank_fusion_type} fuses the dense route: set retrieval_type 1 or 3")
     unported = [
-        (cfg.retrieval_type != 2, f"retrieval_type={cfg.retrieval_type}: the dense route is ROADMAP Queue 1, item 10"),
-        (cfg.rerank_fusion_type != 0, f"rerank_fusion_type={cfg.rerank_fusion_type}: needs the dense route, ROADMAP Queue 1, item 10"),
+        (cfg.retrieval_type != 2 and embed_model is None,
+         "loading an embedder by name needs the registry and loader, ROADMAP Queue 1, items 5 and 7; pass embed_model="),
         (cfg.split_type != 0, "split_type=1: hierarchical auto-merge retrieval is ROADMAP Queue 1, item 7"),
         (cfg.hyde or cfg.hyde_merging, "HyDE is ROADMAP Queue 1, item 7"),
         (bool(cfg.index_artifact_path), "index_artifact_path: the corpus artifact is ROADMAP Queue 1, item 7"),
@@ -63,6 +74,7 @@ class EasyRAGPipeline:
         self,
         config: EasyRAGConfig | Dict[str, Any],
         llm=None,
+        embed_model=None,
         reranker=None,
         documents=None,
         sparse_tokenizer=None,
@@ -72,11 +84,13 @@ class EasyRAGPipeline:
         """``sparse_tokenizer`` tokenizes for BM25 (default: jieba, as the
         reference); ``splitter`` chunks the documents (default: the
         reference's ``SentenceSplitter(chunk_size, chunk_overlap)``, whose
-        default token counter wants a tiktoken table). ``device`` is the
-        card unless the caller asks for the CPU; without a card it raises."""
+        default token counter wants a tiktoken table). ``embed_model`` is the
+        dense route's embedder (``models/qwen2.py::GTEEmbedder``), needed
+        with ``retrieval_type`` 1 or 3. ``device`` is the card unless the
+        caller asks for the CPU; without a card it raises."""
         if isinstance(config, dict):
             config = EasyRAGConfig.from_dict(config)
-        _check_supported(config, reranker)
+        _check_supported(config, reranker, embed_model)
         self.config = cfg = config
         self.device = resolve_device(device)
         self.re_only = cfg.re_only
@@ -112,6 +126,9 @@ class EasyRAGPipeline:
         self.nodeid2idx = build_nodeid2idx(self.nodes)
         self._ctx_cache: Dict[int, str] = {}
 
+        self.embed_model = embed_model
+        self.dense_retriever = self._build_dense(self.nodes, cfg) if cfg.retrieval_type != 2 else None
+
         route = dict(
             nodes=self.nodes,
             tokenizer=self.sparse_tk,
@@ -131,9 +148,34 @@ class EasyRAGPipeline:
         if cfg.f_topk_3 != 0:
             self.path_retriever = BM25Retriever(similarity_top_k=cfg.f_topk_3, embed_type=5, **route)  # know_path
             self._dual_scorer = DualResidentScorer(self.sparse_retriever._resident, self.path_retriever._resident)
+        if cfg.retrieval_type == 1:
+            self.retriever = self.dense_retriever
+        elif cfg.retrieval_type == 2:
+            self.retriever = self.sparse_retriever
+        else:
+            self.retriever = HybridRetriever(self.dense_retriever, self.sparse_retriever, cfg.retrieval_type, cfg.f_topk)
         self.reranker = reranker
         if cfg.local_llm_name and self.local_llm is None:  # local_llm_generate only
             self.local_llm = self._make_local_llm(cfg, self.device)
+
+    def _build_dense(self, nodes, cfg: EasyRAGConfig) -> DenseRetriever:
+        """The cosine index of the nodes' ``f_embed_type_1`` views: reloaded
+        from the artifact at ``cache_path/collection_name`` unless
+        ``reindex`` is set or its row count differs from the node list,
+        otherwise embedded, built and saved there (``pipeline.py:359-426``)."""
+        artifact = os.path.join(cfg.cache_path, cfg.collection_name)
+        if not cfg.reindex and os.path.exists(os.path.join(artifact, "dense_arrays.npz")):
+            index = DenseIndex.load(artifact, device=self.device)
+            if index.num_docs == len(nodes):
+                emit("dense_index", {"loaded": index.num_docs})
+                return DenseRetriever(index, nodes, self.embed_model, similarity_top_k=cfg.f_topk_1)
+        texts = [get_node_content(n, cfg.f_embed_type_1) for n in nodes]
+        embeddings = np.asarray(self.embed_model.get_text_embeddings(texts))
+        dirs = [n.metadata.get("dir", "") for n in nodes]
+        index = DenseIndex.build(embeddings, dirs=dirs, dtype=cfg.tpu.index_dtype, device=self.device)
+        index.save(artifact)
+        emit("dense_index", {"built": index.num_docs})
+        return DenseRetriever(index, nodes, self.embed_model, similarity_top_k=cfg.f_topk_1)
 
     # -- query-time helpers ---------------------------------------------------
 
@@ -194,9 +236,12 @@ class EasyRAGPipeline:
     async def run(self, query: Dict[str, Any]) -> Dict[str, Any]:
         """``{"query": ..., "document": optional dir}`` ->
         ``{"answer", "nodes", "contexts"}``."""
-        _, self.filter_dict = self.build_filters(query)
+        filters, self.filter_dict = self.build_filters(query)
         self.sparse_retriever.filter_dict = self.filter_dict
-        return await self.generation_with_knowledge_retrieval(query_str=query["query"])
+        if self.config.rerank_fusion_type == 0:
+            return await self.generation_with_knowledge_retrieval(query_str=query["query"])
+        self.dense_retriever.filters = filters
+        return await self.generation_with_rerank_fusion(query_str=query["query"])
 
     def _dual_retrieve(self, query_bundle: QueryBundle):
         """Both routes scored together for one query; None when a route
@@ -255,3 +300,42 @@ class EasyRAGPipeline:
         elif self.ans_refine_type == 2:
             ret.text = ret.text + "\n\n" + contents[0]
         return {"answer": ret.text, "nodes": node_with_scores, "contexts": contents}
+
+    async def _rerank(self, nodes, query_bundle: QueryBundle):
+        if not self.reranker:
+            return nodes
+        emit("reranking", {"candidates": len(nodes)})
+        with trace("rerank"):
+            return self.reranker.postprocess_nodes(nodes, query_bundle)
+
+    async def _answer(self, query_str: str, nodes) -> Tuple[str, list]:
+        contents = [self.get_node_content(n) for n in nodes]
+        context_str = "\n\n".join(f"### 文档{i}: {c}" for i, c in enumerate(contents))
+        with trace("generation"):
+            ret = await self.generation(self.llm, self.qa_template.format(context_str=context_str, query_str=query_str))
+        return ret.text, contents
+
+    async def generation_with_rerank_fusion(self, query_str: str) -> Dict[str, Any]:
+        """Dense and content BM25 routes, each reranked on its own, fused by
+        RRF into ``r_topk_1`` nodes; then one generation over the fused
+        contexts (type 1), or one per route and the longer answer (type 2) or
+        both concatenated, sparse first (type 3) (``pipeline.py:955-1007``)."""
+        query_bundle = QueryBundle(query_str=query_str)
+        dense_nodes = await self._rerank(await self.dense_retriever.aretrieve(query_bundle), query_bundle)
+        with trace("sparse"):
+            sparse_nodes = await self.sparse_retriever.aretrieve(query_bundle)
+        sparse_nodes = await self._rerank(sparse_nodes, query_bundle)
+        node_with_scores = HybridRetriever.reciprocal_rank_fusion([sparse_nodes, dense_nodes], topk=self.config.r_topk_1)
+        if self.re_only:
+            contents = [self.get_node_content(n) for n in node_with_scores]
+            return {"answer": "", "nodes": node_with_scores, "contexts": contents}
+        if self.config.rerank_fusion_type == 1:
+            answer, contents = await self._answer(query_str, node_with_scores)
+        else:
+            sparse_answer, _ = await self._answer(query_str, sparse_nodes)
+            dense_answer, contents = await self._answer(query_str, dense_nodes)
+            if self.config.rerank_fusion_type == 2:
+                answer = dense_answer if len(dense_answer) >= len(sparse_answer) else sparse_answer
+            else:
+                answer = sparse_answer + dense_answer
+        return {"answer": answer, "nodes": node_with_scores, "contexts": contents}

@@ -1,15 +1,18 @@
-"""Sparse retrieval (port of the BM25 parts of ``easyrag_tpu/retrievers.py``).
+"""Retrievers (port of ``easyrag_tpu/retrievers.py``).
 
 :class:`BM25Retriever` scores one content view of the node list on the
 device-resident index; a query with more distinct terms than the resident
 index takes (``max_query_terms``) overflows to the gather path: the host
 gathers its postings and ``ops.bm25.bm25_score_topk`` scatters them (K5 on
-CUDA). :class:`HybridRetriever` carries the reference's content
-fusion (``retrievers.py:239-253``).
+CUDA). :class:`DenseRetriever` embeds the query and queries the cosine
+index (``index/dense.py``). :class:`HybridRetriever` carries the reference's
+content fusion (``retrievers.py:239-253``), its reciprocal rank fusion
+(:256-274) and the route dispatch per ``retrieval_type`` (:276-291).
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -18,10 +21,13 @@ import torch
 from .corpus.tokenizer import tokenize_and_remove_stopwords
 from .corpus.views import get_node_content
 from .devices import resolve_device
+from .index.dense import DenseIndex
 from .index.sparse import build_sparse_index
 from .ops.bm25 import bm25_score_topk
 from .ops.bm25_resident import ResidentSparseIndex
 from .schema import NodeWithScore, QueryBundle, TextNode
+from .utils import run_sync
+from .utils.events import trace
 
 
 class BM25Retriever:
@@ -125,9 +131,61 @@ class BM25Retriever:
         return tv.cpu().numpy(), ti.cpu().numpy()
 
 
+class DenseRetriever:
+    """Dense retriever: embed the query, query the cosine index. ``filters``
+    is a ``dir`` value or None."""
+
+    def __init__(self, index: DenseIndex, nodes: List[TextNode], embed_model, similarity_top_k: int = 288) -> None:
+        self.index = index
+        self._nodes = nodes
+        self._embed_model = embed_model
+        self._similarity_top_k = similarity_top_k
+        self.filters: Optional[str] = None
+
+    def _to_nodes(self, vals: np.ndarray, idx: np.ndarray) -> List[NodeWithScore]:
+        n = int(np.isfinite(vals).sum())  # scores descending, -inf tail
+        return [NodeWithScore(node=self._nodes[i], score=v) for v, i in zip(vals[:n].tolist(), idx[:n].tolist())]
+
+    def retrieve(self, query_bundle: QueryBundle) -> List[NodeWithScore]:
+        with trace("query_embedding"):
+            emb = self._embed_model.get_query_embedding(query_bundle.query_str)
+        with trace("dense_topk"):
+            vals, idx = self.index.query(np.asarray(emb), self._similarity_top_k, dir_value=self.filters)
+        return self._to_nodes(vals[0], idx[0])
+
+    async def aretrieve(self, query_bundle: QueryBundle) -> List[NodeWithScore]:
+        return self.retrieve(query_bundle)
+
+    def retrieve_batch(
+        self, query_bundles: List[QueryBundle], dir_values: Optional[List[Optional[str]]] = None
+    ) -> List[List[NodeWithScore]]:
+        """A whole query set: one batched query embedding and one
+        ``DenseIndex.query_stream``; row-wise :meth:`retrieve` up to the
+        rounding of the embedder's batched products."""
+        queries = [qb.query_str for qb in query_bundles]
+        embs = np.asarray(self._embed_model.get_query_embeddings(queries))
+        vals, idx = self.index.query_stream(
+            embs, self._similarity_top_k, dir_values=list(dir_values or [None] * len(queries))
+        )
+        return [self._to_nodes(v, i) for v, i in zip(vals, idx)]
+
+
 class HybridRetriever:
-    """Route fusion (``retrievers.py:223-291``); only the content fusion of
-    the default route is ported."""
+    """Route dispatch and fusion (``retrievers.py:223-291``)."""
+
+    def __init__(
+        self,
+        dense_retriever: Optional[DenseRetriever],
+        sparse_retriever: Optional[BM25Retriever],
+        retrieval_type: int = 1,
+        topk: int = 256,
+    ) -> None:
+        self.dense_retriever = dense_retriever
+        self.sparse_retriever = sparse_retriever
+        self.retrieval_type = retrieval_type  # 1 dense | 2 sparse | 3 hybrid
+        self.filters: Optional[str] = None
+        self.filter_dict: Optional[Dict[str, str]] = None
+        self.topk = topk
 
     @classmethod
     def fusion(cls, list_of_list_ranks_system: List[List[NodeWithScore]], topk: int = 256) -> List[NodeWithScore]:
@@ -143,3 +201,43 @@ class HybridRetriever:
                     seen.add(content)
         all_nodes = sorted(all_nodes, key=lambda n: n.score, reverse=True)
         return all_nodes[:topk]
+
+    @classmethod
+    def reciprocal_rank_fusion(
+        cls, list_of_list_ranks_system: List[List[NodeWithScore]], K: int = 60, topk: int = 256
+    ) -> List[NodeWithScore]:
+        """RRF keyed by content: score = sum of 1/(rank + K) over the routes,
+        1-based ranks. As in the reference, a later route's node object
+        replaces the representative of its content, and its ``score`` is
+        overwritten with the fused score."""
+        rrf_map: Dict[str, float] = defaultdict(float)
+        text_to_node: Dict[str, NodeWithScore] = {}
+        for rank_list in list_of_list_ranks_system:
+            for rank, item in enumerate(rank_list, 1):
+                content = item.get_content()
+                text_to_node[content] = item
+                rrf_map[content] += 1.0 / (rank + K)
+        reranked: List[NodeWithScore] = []
+        for text, score in sorted(rrf_map.items(), key=lambda x: x[1], reverse=True):
+            node = text_to_node[text]
+            node.score = score
+            reranked.append(node)
+        return reranked[:topk]
+
+    async def aretrieve(self, query_bundle: QueryBundle) -> List[NodeWithScore]:
+        sparse_nodes: List[NodeWithScore] = []
+        dense_nodes: List[NodeWithScore] = []
+        if self.retrieval_type != 1:
+            self.sparse_retriever.filter_dict = self.filter_dict
+            sparse_nodes = await self.sparse_retriever.aretrieve(query_bundle)
+            if self.retrieval_type == 2:
+                return sparse_nodes
+        if self.retrieval_type != 2:
+            self.dense_retriever.filters = self.filters
+            dense_nodes = await self.dense_retriever.aretrieve(query_bundle)
+            if self.retrieval_type == 1:
+                return dense_nodes
+        return self.reciprocal_rank_fusion([sparse_nodes, dense_nodes], topk=self.topk)
+
+    def retrieve(self, query_bundle: QueryBundle) -> List[NodeWithScore]:
+        return run_sync(self.aretrieve(query_bundle))

@@ -1,18 +1,21 @@
-"""The port's prefill attention (K3) against the JAX package's.
+"""The port's K3 attention against the JAX package's.
 
 CPU: the port's plain version (what ``flash_attention`` runs for CPU tensors)
 against the stock Pallas TPU ``flash_attention`` under
-``pltpu.force_tpu_interpret_mode()``, called as
-``easyrag_tpu/models/decode.py::_prefill_layer`` calls it: K/V repeated over
-the query groups, heads transposed, left padding as segment ids. f32, real
-rows within atol 2e-5 (f32 sums in another order); every output, pad rows
-included, must be finite.
+``pltpu.force_tpu_interpret_mode()``, called as both of its JAX call sites
+call it: K/V repeated over the query groups, heads transposed, padding as
+segment ids, left padding as ``easyrag_tpu/models/decode.py::_prefill_layer``
+gives it and right padding as ``easyrag_tpu/models/layers.py:351`` gives it
+for the gte-Qwen2 embedder (where the port passes ``kv_start = 0, kv_end =
+length``). f32, real rows within atol 2e-5 (f32 sums in another order); every
+output, pad rows included, must be finite.
 
 CUDA (marked ``cuda``, skipped without a card): the hand-written kernel
-against the plain version in bf16 at S=1024. Each real row of one head (128
-values) must agree within 1.6e-2 of the row's largest ``|plain|``: the kernel
-rounds the unnormalised probabilities to bf16 and divides at the end, the
-plain version rounds the normalised ones (the bound of the K1 tests).
+against the plain version in bf16 at S=1024, left and right padded. Each real
+row of one head (128 values) must agree within 1.6e-2 of the row's largest
+``|plain|``: the kernel rounds the unnormalised probabilities to bf16 and
+divides at the end, the plain version rounds the normalised ones (the bound
+of the K1 tests).
 """
 
 import numpy as np
@@ -71,6 +74,25 @@ def test_plain_matches_stock_kernel_left_padding(nh, nkv):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("nh,nkv", [(2, 1), (4, 2)])
+def test_plain_matches_stock_kernel_right_padding(nh, nkv):
+    """The embedder's call (``layers.py:351``): right padding, a
+    batch-padding row with one real token."""
+    B, S = 3, 256
+    q, k, v = _inputs(B, S, nh, nkv, seed=10 + nh)
+    lengths = np.array([S, 130, 1])
+    mask = (np.arange(S)[None, :] < lengths[:, None]).astype(np.int32)
+    scale = 128 ** -0.5
+    ref = _stock(q, k, v, mask, nh, nkv, scale)
+    got = k3.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.zeros(B, dtype=torch.int32), torch.from_numpy(lengths.astype(np.int32)), scale, nkv,
+    ).numpy()
+    real = mask.astype(bool)
+    assert np.abs(got[real] - ref[real]).max() <= 2e-5
+    assert np.isfinite(got).all()
+
+
 def test_plain_rows_without_keys_stay_finite():
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 64, 4, 2, seed=3))
     got = k3.flash_attention(q, k, v, torch.tensor([10, 0], dtype=torch.int32),
@@ -114,18 +136,23 @@ def test_kernel_raises_at_other_head_dims(cuda, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lengths", [[1024, 1024], [1024, 41], [700, 0]])
-def test_kernel_matches_plain_on_card(cuda, lengths):
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("lengths", [[1024, 1024], [1024, 41], [700, 0], [130, 1]])
+def test_kernel_matches_plain_on_card(cuda, lengths, side):
     B, S, nh, nkv = 2, 1024, 8, 2
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(B, S, nh, nkv, seed=sum(lengths)))
-    kv_s = torch.tensor([S - n for n in lengths], dtype=torch.int32, device=cuda)
-    kv_e = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    n = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if side == "left":
+        kv_s, kv_e = S - n, torch.full((B,), S, dtype=torch.int32, device=cuda)
+    else:  # the embedder's padding
+        kv_s, kv_e = torch.zeros(B, dtype=torch.int32, device=cuda), n
     before = k3.launches
     got = k3.flash_attention(q, k, v, kv_s, kv_e, 128 ** -0.5, nkv)
     torch.cuda.synchronize()
     assert k3.launches == before + 1
     ref = k3.flash_attention_plain(q, k, v, kv_s, kv_e, 128 ** -0.5, nkv)
     assert torch.isfinite(got.float()).all()  # pad rows included
-    real = torch.arange(S, device=cuda)[None, :] >= kv_s[:, None]
+    pos = torch.arange(S, device=cuda)[None, :]
+    real = (pos >= kv_s[:, None]) & (pos < kv_e[:, None])
     g, r = got[real].float().reshape(-1, 128), ref[real].float().reshape(-1, 128)
     assert ((g - r).abs() <= ROW_RTOL * r.abs().amax(dim=1, keepdim=True)).all()

@@ -8,8 +8,12 @@ and send the same QA prompt. The queries cover the dual route, the dir filter
 and a query past the resident term budget (the overflow gather path, K5's
 plain version here). With ``tpu.local_llm_answer`` both pipelines answer with
 their own on-device generator over one tiny saved Qwen2 checkpoint, and the
-answers must be equal. Each pipeline takes its own package's config, reranker
-driver and schema. A subprocess with ``jax``, ``jaxlib`` and ``easyrag_tpu``
+answers must be equal. The dense route (``retrieval_type`` 1 and 3,
+``rerank_fusion_type`` 0-3, with ``re_only`` and with the stub LLM) takes one
+tiny gte-Qwen2 tree, given to the port through ``gte_from_jax``: the same
+nodes, contexts and prompts, the same route dispatch and RRF, and a reboot
+from either package's saved index that embeds nothing. Each pipeline takes
+its own package's config, `LLMRerank` and schema. A subprocess with ``jax``, ``jaxlib`` and ``easyrag_tpu``
 blocked runs the port alone, including a generator loaded from a bf16
 checkpoint, and an AST scan holds every port file to importing nothing of
 either.
@@ -32,17 +36,22 @@ import torch
 from easyrag_tpu import config as jconfig
 from easyrag_tpu.corpus import tokenizer as jtokmod
 from easyrag_tpu.models.minicpm import MiniCPMLayerWiseReranker as JaxReranker
+from easyrag_tpu.models.qwen2 import GTEEmbedder as JaxEmbedder
 from easyrag_tpu.pipeline import EasyRAGPipeline as JaxPipeline
 from easyrag_tpu.rerankers import LLMRerank as JaxLLMRerank
+from easyrag_tpu.schema import QueryBundle as JaxQueryBundle
 from easyrag_tpu_torch import config as tconfig
 from easyrag_tpu_torch.corpus import tokenizer as tokmod
 from easyrag_tpu_torch.generation import CompletionResponse
-from easyrag_tpu_torch.models.convert import minicpm_from_jax
+from easyrag_tpu_torch.models.convert import gte_from_jax, minicpm_from_jax
 from easyrag_tpu_torch.models.layers import DecoderConfig
 from easyrag_tpu_torch.pipeline import EasyRAGPipeline
 from easyrag_tpu_torch.rerankers import LLMRerank
+from easyrag_tpu_torch.retrievers import HybridRetriever
 from easyrag_tpu_torch.schema import QueryBundle
 from test_torch_decode import tiny_causal_checkpoint  # noqa: F401  (a fixture)
+from test_torch_embedder import ARCH as GTE_ARCH
+from test_torch_embedder import BatchCharTok, jax_tree
 from test_torch_minicpm import ARCH, CharTok, tiny_params
 
 torch.set_num_threads(1)
@@ -158,9 +167,125 @@ def test_local_llm_answer_matches_jax_pipeline(tmp_path, offline_counter, tiny_c
     assert got.local_llm_generate("w3 w1 w4") == ref.local_llm_generate("w3 w1 w4")
 
 
+def dense_pair(tmp_path, side="right", **kw):
+    """(JAX's pipeline, the port's, the port's embedder) on the dense route
+    with one tiny gte-Qwen2 tree and one tiny MiniCPM reranker; each writes
+    its dense index under its own cache path. JAX's embedder takes the
+    einsum path, the port's K3's plain version: one function."""
+    data_path = make_corpus(tmp_path / "corpus")
+    knobs = dict(data_path=data_path, chunk_size=64, chunk_overlap=10, f_topk_1=5, f_topk_2=5, f_topk_3=2, f_topk=6,
+                 r_topk=3, r_topk_1=4, r_embed_bs=4, **kw)
+    cfg, _ = configs(cache_path=str(tmp_path / "jax"), tpu=dict(use_pallas=False), **knobs)
+    _, port_cfg = configs(cache_path=str(tmp_path / "port"), **knobs)
+    jcfg, params, params_np = tiny_params()
+    opts = dict(start_layer=1, cutoff_layer=3, max_length=64)
+    gcfg, gparams, gparams_np = jax_tree()
+    ref = JaxPipeline(
+        cfg, llm=RecordingLLM(), embed_model=JaxEmbedder(gcfg, gparams, BatchCharTok(), embed_type=1),
+        reranker=JaxLLMRerank(JaxReranker(jcfg, params, CharTok(side), **opts), top_n=3, embed_bs=4, embed_type=1),
+    )
+    emb = gte_from_jax(DecoderConfig(**GTE_ARCH), gparams_np, "cpu", torch.float32, BatchCharTok(),
+                       embed_type=1)
+    scorer = minicpm_from_jax(DecoderConfig(**ARCH), params_np, "cpu", torch.float32, CharTok(side), **opts)
+    got = EasyRAGPipeline(port_cfg, llm=RecordingLLM(), embed_model=emb,
+                          reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1), device="cpu")
+    return ref, got, emb
+
+
+def assert_runs_match(ref, got, queries=QUERIES):
+    for q in queries:
+        a = asyncio.run(ref.run(dict(q)))
+        b = asyncio.run(got.run(dict(q)))
+        assert [n.node.idx for n in b["nodes"]] == [n.node.idx for n in a["nodes"]]
+        assert b["contexts"] == a["contexts"]
+        np.testing.assert_allclose([n.score for n in b["nodes"]], [n.score for n in a["nodes"]], atol=1e-4, rtol=0)
+        assert b["answer"] == a["answer"]
+    assert got.llm.prompts == ref.llm.prompts
+
+
+@pytest.mark.parametrize(
+    "retrieval_type,fusion,re_only", [(3, 1, False), (3, 1, True), (1, 2, False), (3, 3, False), (3, 0, False)]
+)
+def test_dense_route_matches_jax_pipeline(tmp_path, offline_counter, retrieval_type, fusion, re_only):
+    ref, got, emb = dense_pair(tmp_path, retrieval_type=retrieval_type, rerank_fusion_type=fusion, re_only=re_only)
+    n = len(got.nodes)
+    assert got.dense_retriever.index.num_docs == ref.dense_retriever.index.num_docs == n
+    if retrieval_type == 1:
+        assert got.retriever is got.dense_retriever
+    else:
+        assert isinstance(got.retriever, HybridRetriever) and got.retriever.topk == 6
+    boot = dict(emb.stats)
+    assert boot["batches"] == 1  # the whole corpus in one 128-row bucket
+    assert_runs_match(ref, got)
+    # every fused query embeds once; the knowledge path (fusion 0) never
+    # queries the dense index it built, as in JAX (ROADMAP Queue 3)
+    assert emb.stats["batches"] - boot["batches"] == (len(QUERIES) if fusion else 0)
+
+
+def test_dense_index_reboots_from_either_artifact(tmp_path, offline_counter):
+    ref, got, emb = dense_pair(tmp_path, retrieval_type=3, rerank_fusion_type=1)
+    for cache in ("port", "jax"):
+        before = emb.stats["batches"]
+        again = EasyRAGPipeline(
+            dataclasses.replace(got.config, cache_path=str(tmp_path / cache)), llm=RecordingLLM(),
+            embed_model=emb, reranker=got.reranker, device="cpu",
+        )
+        assert emb.stats["batches"] == before  # loaded, not embedded
+        if cache == "port":
+            assert torch.equal(again.dense_retriever.index.matrix, got.dense_retriever.index.matrix)
+        assert_runs_match(ref, again, QUERIES[:2])
+        ref.llm.prompts.clear()
+    before = emb.stats["batches"]
+    stale = EasyRAGPipeline(dataclasses.replace(got.config, reindex=True), llm=RecordingLLM(), embed_model=emb,
+                            reranker=got.reranker, device="cpu")
+    assert emb.stats["batches"] == before + 1 and stale.dense_retriever.index.num_docs == len(got.nodes)
+
+
+@pytest.mark.parametrize("retrieval_type", [1, 2, 3])
+def test_hybrid_retriever_matches_jax(tmp_path, offline_counter, retrieval_type):
+    from easyrag_tpu.retrievers import HybridRetriever as JaxHybrid
+
+    ref, got, _ = dense_pair(tmp_path, retrieval_type=3, rerank_fusion_type=1)
+    jr = JaxHybrid(ref.dense_retriever, ref.sparse_retriever, retrieval_type, topk=6)
+    tr = HybridRetriever(got.dense_retriever, got.sparse_retriever, retrieval_type, topk=6)
+    for q in QUERIES:
+        filters, filter_dict = got.build_filters(q)
+        jr.filters, jr.filter_dict, tr.filters, tr.filter_dict = filters, filter_dict, filters, filter_dict
+        a, b = jr.retrieve(JaxQueryBundle(query_str=q["query"])), tr.retrieve(QueryBundle(query_str=q["query"]))
+        assert [n.node.idx for n in b] == [n.node.idx for n in a] and len(b) > 0
+        np.testing.assert_allclose([n.score for n in b], [n.score for n in a], atol=1e-5, rtol=0)
+    bundles = [QueryBundle(query_str=q["query"]) for q in QUERIES]
+    dirs = [got.build_filters(q)[0] for q in QUERIES]
+    batch = got.dense_retriever.retrieve_batch(bundles, dirs)
+    for nodes, bundle, d in zip(batch, bundles, dirs):
+        got.dense_retriever.filters = d
+        rows = got.dense_retriever.retrieve(bundle)
+        assert [n.node.idx for n in nodes] == [n.node.idx for n in rows]
+        np.testing.assert_allclose([n.score for n in nodes], [n.score for n in rows], atol=1e-5, rtol=0)
+
+
+def test_rrf_replaces_the_representative_node():
+    from easyrag_tpu_torch.schema import NodeWithScore, TextNode
+
+    a, b, c = (TextNode(text=t) for t in "abc")
+    first = [NodeWithScore(node=a, score=9.0), NodeWithScore(node=b, score=8.0)]
+    later_b = NodeWithScore(node=TextNode(text="b"), score=1.0)
+    second = [later_b, NodeWithScore(node=c, score=0.5)]
+    fused = HybridRetriever.reciprocal_rank_fusion([first, second], topk=2)
+    assert [n.node.text for n in fused] == ["b", "a"] and fused[0] is later_b
+    assert fused[0].score == pytest.approx(1 / 62 + 1 / 61) and fused[1].score == pytest.approx(1 / 61)
+
+
+def test_fusion_without_the_dense_route_is_refused(tmp_path, offline_counter):
+    with pytest.raises(ValueError, match="retrieval_type 1 or 3"):
+        EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=make_corpus(tmp_path / "c"), use_reranker=0,
+                                              rerank_fusion_type=1), device="cpu")
+
+
 def test_unported_options_raise(tmp_path, offline_counter):
     data_path = make_corpus(tmp_path / "corpus")
-    for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1}, {"split_type": 1}, {"hyde": True},
+    for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1, "retrieval_type": 3}, {"split_type": 1},
+               {"hyde": True},
                {"index_artifact_path": str(tmp_path / "a")}, {"use_reranker": 2},
                {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_answer=True, local_llm_continuous=True)},
                {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_quant="w4a8")}):
@@ -231,7 +356,7 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     from easyrag_tpu_torch.models import decode
     from easyrag_tpu_torch.models.hf_loader import load_decoder_params
     from easyrag_tpu_torch.models.quant import fuse_decode_tree
-    ckpt = os.path.join(root, "ckpt")
+    ckpt = root + "_ckpt"
     os.makedirs(ckpt)
     gen = torch.Generator().manual_seed(0)
     shapes = {{"embed_tokens.weight": (64, 256), "norm.weight": (256,), "lm_head.weight": (64, 256)}}
@@ -251,11 +376,42 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     ids = torch.tensor([[0, 0, 5, 7, 9, 11, 3, 2]], dtype=torch.int32)
     toks = decode.generate_greedy(cfg, params, ids, (ids > 0).to(torch.int32), torch.tensor([63], dtype=torch.int32), 4)
 
+    # the dense route: the same checkpoint as a gte embedder (K3's plain
+    # version at the 128 bucket), RRF of both reranked routes
+    import numpy as np
+    from easyrag_tpu_torch.models.hf_loader import load_qwen2_embedder
+    from easyrag_tpu_torch.models.qwen2 import GTEEmbedder
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(dict(vocab_size=64, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                       num_attention_heads=2, num_key_value_heads=1), f)
+
+    class BTok:
+        padding_side = "right"
+        def __call__(self, texts, max_length=None, padding=True, truncation=True, return_tensors="np"):
+            rows = [[ord(c) % 62 + 2 for c in t][:max_length] for t in texts]
+            ids = np.zeros((len(rows), max(map(len, rows))), np.int64)
+            for i, r in enumerate(rows):
+                ids[i, :len(r)] = r
+            return {{"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}}
+
+    gcfg, gparams = load_qwen2_embedder(ckpt, dtype=torch.float32, device="cpu")
+    emb = GTEEmbedder(gcfg, gparams, BTok(), embed_type=1, device="cpu")
+    dense = EasyRAGPipeline(
+        EasyRAGConfig(data_path=root, chunk_size=64, chunk_overlap=10, f_topk_1=4, f_topk_2=8, f_topk_3=2,
+                      retrieval_type=3, rerank_fusion_type=1, cache_path=root + "_cache"),
+        llm=StubLLM(), embed_model=emb, reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1),
+        sparse_tokenizer=CharCut(),
+        splitter=SentenceSplitter(64, 10, token_counter=approx_token_count, sentence_splitter=lambda t: [t]),
+        device="cpu",
+    )
+    fused = [asyncio.run(dense.run(dict(q))) for q in QUERIES]
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu"))
     print(json.dumps({{"contexts": [len(o["contexts"]) for o in out], "answers": [o["answer"] for o in out],
                       "fused": sorted(params["layers"][0]["attn"]) + sorted(params["layers"][0]["mlp"]),
-                      "embed": sorted(params["embed"]), "tokens": toks.tolist(), "jax_modules": loaded}}))
+                      "embed": sorted(params["embed"]), "tokens": toks.tolist(), "jax_modules": loaded,
+                      "rrf_nodes": [len(o["nodes"]) for o in fused], "embedded": emb.stats["batches"]}}))
     """
 )
 
@@ -276,6 +432,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert len(result["tokens"][0]) == 4 and all(0 <= t < 64 for t in result["tokens"][0])
     assert result["answers"] == ["answer"] * len(QUERIES)
     assert all(0 < n <= 3 for n in result["contexts"])
+    assert all(0 < n <= 6 for n in result["rrf_nodes"]) and result["embedded"] == 1 + len(QUERIES)
 
 
 def _imported_modules(path):
