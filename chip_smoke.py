@@ -11,8 +11,12 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    per source, all started together; print each one's registers and spills;
 2. each kernel against its plain PyTorch version on the card: K1
    (``flash64_attention``) at B=4, S=1064, H=36 with and without RoPE on
-   both padding sides, K5 (``bm25_scores``) at P=32768, N=20000 for B=1
-   and B=4, K2 (``int4_matvec``) on the five Qwen2-7B int4 shapes at R=1, 4,
+   both padding sides, and at S=1064 and S=8 (ragged last tiles) with rows
+   of full length, 40, 1 and 0 (the empty row must be zero); K5
+   (``bm25_scores``) at P=32768, N=20000 for B=1 and B=4, and at P 0, 1000,
+   32768 and 262144, B 1 and 3, N 20000 and 1 with ids out of range,
+   all-sentinel and skewed rows, each the same bits twice and equal bit for
+   bit to the plain version's posting-order sums on the CPU; K2 (``int4_matvec``) on the five Qwen2-7B int4 shapes at R=1, 4,
    8 and 32 (rows of the R=32 launch must equal the smaller launches bit for
    bit; times from CUDA graphs of at least 50 launches that cycle through
    copies of the weights four times the size of the L2, as a decode step
@@ -33,7 +37,9 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    CPU run of its first 8 layers on a small input. The long query's overflow
    scatter, run twice with ``use_pallas`` off, must go through K5 and give
    the same bits;
-4. K1 and K5 against their plain versions at the pipeline's own shapes;
+4. K1 and K5 against their plain versions at the pipeline's own shapes,
+   with K1's TFLOP/s and K5's GB/s, each one's share of its bound and its
+   factor against SDPA or ``index_add_`` timed in the same run;
 5. the on-device answer generator: Qwen2-7B-Instruct at full width and
    depth (random bf16 weights from a seeded ``torch.Generator``, quantized by
    the port into the ``local_llm_quant: int4`` layout, fused), with
@@ -385,22 +391,46 @@ def k1_compare(torch, f64, args):
     return err, row_rel
 
 
-def k5_case(torch, B, P, N, gen):
+def k5_case(torch, B, P, N, gen, hard=False):
+    """``[B, P]`` postings: ids over ``[0, N]`` (a doc repeats across term
+    slices; id N is the sentinel with value 0). With ``hard``, about 2% of the
+    ids lie below 0 or above N, and with B > 1 row 0 is all sentinels and the
+    last row puts every posting into the first 128-doc tile, as a Zipf head
+    would."""
     dev = torch.device("cuda")
     ids = torch.randint(0, N + 1, (B, P), generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
     vals = torch.rand(B, P, generator=gen, device=dev)
+    if hard:
+        odd = torch.rand(B, P, generator=gen, device=dev)
+        ids = torch.where(odd < 0.01, -3, torch.where(odd < 0.02, N + 5, ids)).to(torch.int32)
+        if B > 1:
+            ids[0] = N
+            ids[-1] = torch.randint(0, min(N, 128), (P,), generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
     vals = torch.where(ids == N, 0.0, vals)  # the sentinel carries value 0
     return ids, vals, N
 
 
-def k5_compare(torch, k5, args):
+def k5_compare(torch, k5, args, card_plain=True):
+    """K5 twice (the same bits), bit for bit against its plain version on the
+    CPU, which adds each doc's postings in posting order as the kernel does,
+    and (``card_plain``) within ``K5_RTOL`` of its plain version on the card,
+    whose ``index_add_`` adds with atomics in another order: at a dozen
+    postings a doc that order moves a sum by less than that, not at the
+    thousands a doc of the skewed and N = 1 cases. Returns the largest
+    difference from the card's plain version."""
     got = k5.bm25_scores(*args)
     again = k5.bm25_scores(*args)
     ref = k5.bm25_scores_plain(*args)
     torch.cuda.synchronize()
-    check(torch.equal(got, again), "K5 is not deterministic")
-    err = float((got - ref).abs().max())
-    check(bool(((got - ref).abs() <= K5_RTOL * ref.abs() + 1e-6).all()), f"K5 disagrees with its plain version (max abs {err})")
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)), "K5 is not deterministic")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    if card_plain:
+        check(bool(((got - ref).abs() <= K5_RTOL * ref.abs() + 1e-6).all()),
+              f"K5 disagrees with its plain version (max abs {err})")
+    ids, vals, n = args
+    host = k5.bm25_scores_plain(ids.cpu(), vals.cpu(), n)
+    check(torch.equal(got.cpu().view(torch.int32), host.view(torch.int32)),
+          "K5 differs from the posting-order sums of its plain version on the CPU")
     return err
 
 
@@ -550,6 +580,17 @@ def phase_kernels(torch, f64, k5):
             plain = cuda_ms(torch, lambda: f64.flash64_attention_plain(*args), reps=5)
             say(f"K1 B={B} S={S} H={H} rope={rope} pad={side}: max_abs_err {err:.3e} "
                 f"(row-relative {row_rel:.3e}) finite; kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    # ragged last q and k tiles; rows of full length, 40, 1 and none (the
+    # empty row visits no key tile and writes zeros)
+    for S in (1064, 8):
+        for rope in (False, True):
+            for side in ("left", "right"):
+                args = k1_case(torch, 4, S, 8, gen, rope, side, [S, min(40, S), 1, 0])
+                err, row_rel = k1_compare(torch, f64, args)
+                errs["K1"] = max(errs["K1"], err)
+                check(bool((f64.flash64_attention(*args)[3] == 0).all()), "K1: the empty row is not zero")
+        say(f"K1 B=4 S={S} H=8, lengths {S}, {min(40, S)}, 1 and 0, RoPE on and off, both paddings: max_abs_err "
+            f"{errs['K1']:.3e} so far, every real row within {K1_ROW_RTOL} of its largest value, the empty row zero")
     for B in (1, 4):
         args = k5_case(torch, B, 32768, N_DOCS, gen)
         err = k5_compare(torch, k5, args)
@@ -557,6 +598,14 @@ def phase_kernels(torch, f64, k5):
         ms = cuda_ms(torch, lambda: k5.bm25_scores(*args))
         plain = cuda_ms(torch, lambda: k5.bm25_scores_plain(*args))
         say(f"K5 B={B} P=32768 N={N_DOCS}: max_abs_err {err:.3e}; kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    # P not a multiple of the 512-posting sub-chunk (1000), empty rows, N
+    # not a multiple of the 128-doc tile and N = 1, all-sentinel and skewed rows
+    for N in (N_DOCS, 1):
+        for B in (1, 3):
+            for P in (0, 1000, 32768, 262144):
+                k5_compare(torch, k5, k5_case(torch, B, P, N, gen, hard=True), card_plain=False)
+    say(f"K5 at P 0, 1000, 32768 and 262144, B 1 and 3, N {N_DOCS} and 1 (duplicates, ids out of range, "
+        f"all-sentinel and skewed rows): the same bits twice, equal to the posting-order sums bit for bit")
     return errs
 
 
@@ -661,11 +710,13 @@ def phase_pipeline(torch, np, f64, k5, tmp):
     asyncio.run(pipeline.run(dict(queries[0][1])))  # warm-up, not counted
     torch.cuda.synchronize()
 
-    candidates, stages = [], []
+    candidates, stages, batches = [], [], []
 
     def listen(kind, payload):
         if kind == "reranking" and "candidates" in payload:
             candidates.append(payload["candidates"])
+        elif kind == "reranking" and "batch" in payload:
+            batches[-1].append(payload["pairs"])
         elif kind == "timing":
             stages.append((payload["name"], payload["seconds"] * 1e3))
 
@@ -674,6 +725,7 @@ def phase_pipeline(torch, np, f64, k5, tmp):
     f64.launches = 0
     k5.launches = 0
     for name, q, _ in queries:
+        batches.append([])
         k1_0, k5_0 = f64.launches, k5.launches
         t = time.perf_counter()
         out = asyncio.run(pipeline.run(dict(q)))
@@ -684,10 +736,11 @@ def phase_pipeline(torch, np, f64, k5, tmp):
     launches = {"K1": f64.launches, "K5": k5.launches}
     unsubscribe()
 
-    for (name, q, out, ms, dk1, dk5, st), n_cand in zip(results, candidates, strict=True):
+    for (name, q, out, ms, dk1, dk5, st), n_cand, sizes in zip(results, candidates, batches, strict=True):
         n_terms = len(set(pipeline.sparse_retriever._tokenize_query(q["query"])))
         split = ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
-        say(f"query {name!r} ({n_terms} distinct terms): {ms:.1f} ms ({split}); {n_cand} candidates; "
+        say(f"query {name!r} ({n_terms} distinct terms): {ms:.1f} ms ({split}); {n_cand} candidates in "
+            f"{len(sizes)} rerank batches {sizes}, {st['rerank'] / len(sizes):.1f} ms per batch; "
             f"top-6 {[n.node.idx for n in out['nodes']]}; K1 launches {dk1}, K5 launches {dk5}")
         check(dk1 > 0, f"K1 did not run on query {name!r}")
         check(len(out["nodes"]) == cfg.r_topk and len(out["contexts"]) == cfg.r_topk, f"query {name!r}: wrong result size")
@@ -756,9 +809,11 @@ def phase_main_shapes(torch, np, f64, k5, mask, P):
     plain = cuda_ms(torch, lambda: f64.flash64_attention_plain(*args), reps=3, warmup=1)
     q, k, v, kv_s, kv_e, scale, cos, sin = args
     lib = sdpa_ms(torch, q, k, v, 36, 36, kv_s, kv_e, scale, cos, sin)
-    b1 = bound(4 * 36 * 64 * causal_pairs(np, S, start, end), 4 * q.nbytes + cos.nbytes + sin.nbytes)
+    flop = 4 * 36 * 64 * causal_pairs(np, S, start, end)
+    b1 = bound(flop, 4 * q.nbytes + cos.nbytes + sin.nbytes)
     say(f"K1 B={B} S={S} H=36 rope pad=right: max_abs_err {err:.3e} (row-relative {row_rel:.3e}); "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA {lib:.3f} ms; bound {b1[0]:.4f} ms ({b1[1]})")
+        f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s on real rows, {b1[0] / ms:.1%} of the bound), "
+        f"plain {plain:.3f} ms, SDPA {lib:.3f} ms (kernel {lib / ms:.2f}x as fast); bound {b1[0]:.4f} ms ({b1[1]})")
     timings = {"K1": (ms, plain, err, *b1, lib)}
     args5 = k5_case(torch, 1, P, N_DOCS, gen)
     err5 = k5_compare(torch, k5, args5)
@@ -768,9 +823,11 @@ def phase_main_shapes(torch, np, f64, k5, mask, P):
     flat_ids, flat_vals = ids.reshape(-1).long(), vals.reshape(-1)
     acc = torch.zeros(N_DOCS + 1, device=ids.device)  # the sentinel id N lands in the extra slot
     lib5 = cuda_ms(torch, lambda: acc.index_add_(0, flat_ids, flat_vals))
-    b5 = bound(P, ids.nbytes + vals.nbytes + N_DOCS * 4, PEAK_F32)  # one f32 add per posting
-    say(f"K5 B=1 P={P} N={N_DOCS}: max_abs_err {err5:.3e}; kernel {ms5:.3f} ms, plain {plain5:.3f} ms, "
-        f"index_add_ {lib5:.3f} ms; bound {b5[0]:.4f} ms ({b5[1]})")
+    nbytes = ids.nbytes + vals.nbytes + N_DOCS * 4
+    b5 = bound(P, nbytes, PEAK_F32)  # one f32 add per posting
+    say(f"K5 B=1 P={P} N={N_DOCS}: max_abs_err {err5:.3e}; kernel {ms5:.4f} ms ({nbytes / ms5 / 1e6:.1f} GB/s of "
+        f"postings and scores, {b5[0] / ms5:.1%} of the bound), plain {plain5:.4f} ms, index_add_ {lib5:.4f} ms "
+        f"(kernel {lib5 / ms5:.2f}x as fast); bound {b5[0]:.5f} ms ({b5[1]})")
     timings["K5"] = (ms5, plain5, err5, *b5, lib5)
     return timings
 
@@ -1480,9 +1537,13 @@ def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
 
     candidates, stages = [], []
 
+    n_batches = []
+
     def listen(kind, payload):
         if kind == "reranking" and "candidates" in payload:
             candidates[-1].append(payload["candidates"])
+        elif kind == "reranking" and "batch" in payload:
+            n_batches[-1] += 1
         elif kind == "timing":
             stages.append((payload["name"], payload["seconds"] * 1e3))
 
@@ -1490,6 +1551,7 @@ def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
     results = []
     for name, q, _ in queries:
         candidates.append([])
+        n_batches.append(0)
         before, k1_0, k3_0 = embedder.stats["batches"], k1.launches, k3.launches
         t = time.perf_counter()
         out = asyncio.run(dense.run(dict(q)))
@@ -1502,9 +1564,10 @@ def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
         stages.clear()
     launches = {key: mod.launches for key, mod in mods.items()}
     unsubscribe()
-    for (name, out, ms, dk1, dk3, embedded, split), cand in zip(results, candidates, strict=True):
+    for (name, out, ms, dk1, dk3, embedded, split), cand, nb in zip(results, candidates, n_batches, strict=True):
         parts = ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
-        say(f"query {name!r}: {ms:.1f} ms ({parts}); candidates (dense, sparse) {cand}; K1 launches {dk1}, "
+        say(f"query {name!r}: {ms:.1f} ms ({parts}); candidates (dense, sparse) {cand} in {nb} rerank batches, "
+            f"{split['rerank'] / nb:.1f} ms per batch; K1 launches {dk1}, "
             f"K3 launches {dk3}; top-6 {[x.node.idx for x in out['nodes']]}")
         check(embedded == 1 and dk1 > 0 and dk3 > 0, f"query {name!r}: the query was not embedded through K3 or reranked through K1")
         check(len(out["nodes"]) == pcfg.r_topk_1 and len(out["contexts"]) == pcfg.r_topk_1, f"query {name!r}: wrong result size")

@@ -4,9 +4,10 @@
 ``bm25_scores(doc_ids, vals, num_docs)`` turns gathered postings into a dense
 score vector: ``s[d] = sum_p vals[p] * [doc_ids[p] == d]`` in exact f32, ids
 outside ``[0, num_docs)`` dropped (the sentinel ``num_docs`` carries value 0).
-CUDA tensors go through ``csrc/bm25_scatter.cu``, which adds each doc's
-postings in posting order without atomics, so the result is the same on every
-run; CPU tensors go through :func:`bm25_scores_plain`.
+CUDA tensors go through ``csrc/bm25_scatter.cu``: a stable counting sort of
+the postings by doc tile, then one sum per doc over its tile's bucket, so each
+doc adds its postings in posting order without float atomics and the result
+is the same on every run; CPU tensors go through :func:`bm25_scores_plain`.
 """
 
 from __future__ import annotations
@@ -17,8 +18,28 @@ import torch
 
 from .. import _build
 
-#: kernel launches made by :func:`bm25_scores` (read and reset by callers)
+#: kernel launches made by :func:`bm25_scores` (read and reset by callers);
+#: one per call, though a call runs the kernel's four passes
 launches = 0
+
+# csrc/bm25_scatter.cu's SUB, TILE_DOCS and MAX_TILES
+SUB = 512
+TILE_DOCS = 128
+MAX_TILES = 1024
+
+
+def scatter_layout(B: int, P: int, num_docs: int):
+    """``(tile, n_tiles, n_sub, n_scratch)`` of the kernel's counting sort:
+    docs per tile (``TILE_DOCS``, or a multiple of it so that at most
+    ``MAX_TILES`` tiles cover ``num_docs``), the tile count, the count of
+    ``SUB``-posting sub-chunks per row, and the 4-byte scratch words (counts
+    and in-tile offsets, tile totals, bucketed ids, bucketed values)."""
+    tile = TILE_DOCS * max(1, -(-num_docs // (TILE_DOCS * MAX_TILES)))
+    n_tiles = -(-num_docs // tile)
+    n_sub = -(-P // SUB)
+    if n_tiles * n_sub + n_tiles + P >= 2**31:
+        raise ValueError(f"bm25_scores: P={P}, num_docs={num_docs} overflow the kernel's int32 offsets")
+    return tile, n_tiles, n_sub, B * (n_tiles * n_sub + n_tiles + 2 * P)
 
 
 def bm25_scores_plain(doc_ids: torch.Tensor, vals: torch.Tensor, num_docs: int) -> torch.Tensor:
@@ -41,10 +62,19 @@ def _lib():
     lib = _build.load("bm25_scatter")
     if not getattr(lib, "_argtypes_set", False):
         p = ctypes.c_void_p
-        lib.bm25_scores_launch.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        i = ctypes.c_int
+        lib.bm25_scores_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.bm25_scores_launch.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
+
+
+def _launch(ids, vals, out, scratch, B, P, N, tile, n_tiles, n_sub) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = _lib().bm25_scores_launch(
+        ids.data_ptr(), vals.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, P, N, tile, n_tiles, n_sub, stream
+    )
+    _build.check(rc, "bm25_scores_launch")
 
 
 def bm25_scores(doc_ids: torch.Tensor, vals: torch.Tensor, num_docs: int) -> torch.Tensor:
@@ -66,15 +96,19 @@ def bm25_scores(doc_ids: torch.Tensor, vals: torch.Tensor, num_docs: int) -> tor
     squeeze = doc_ids.dim() == 1
     ids2 = doc_ids[None] if squeeze else doc_ids
     B, P = ids2.shape
-    out = torch.empty((B, num_docs), dtype=torch.float32, device=doc_ids.device)
+    dev = doc_ids.device
+    out = torch.empty((B, num_docs), dtype=torch.float32, device=dev)
+    if num_docs <= 0 or B == 0:  # nothing to launch
+        return out[0] if squeeze else out
+    tile, n_tiles, n_sub, n_scratch = scatter_layout(B, P, num_docs)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
     global launches
-    with torch.cuda.device(doc_ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(
-            _lib().bm25_scores_launch(
-                ids2.data_ptr(), vals.data_ptr(), out.data_ptr(), B, P, num_docs, stream
-            ),
-            "bm25_scores_launch",
-        )
+    # the launch goes to the current device: switch only when the tensors
+    # lie on another one (the switch costs more host time than the kernel)
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            _launch(ids2, vals, out, scratch, B, P, num_docs, tile, n_tiles, n_sub)
+    else:
+        _launch(ids2, vals, out, scratch, B, P, num_docs, tile, n_tiles, n_sub)
     launches += 1
     return out[0] if squeeze else out

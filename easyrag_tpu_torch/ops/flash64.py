@@ -9,8 +9,9 @@ Logits and softmax are f32; masked logits are ``finfo(f32).min``, so rows with
 no valid key stay finite. With ``cos``/``sin`` (``[S, 64]`` f32,
 batch-shared positions) rotate-half RoPE is applied to q and k first.
 
-CUDA tensors go through ``csrc/flash64.cu``; CPU tensors through
-:func:`flash64_attention_plain`.
+CUDA tensors go through ``csrc/flash64.cu`` (with RoPE, a prologue kernel
+rotates K once into a scratch tensor, then the attention kernel runs; one
+launch in the count); CPU tensors through :func:`flash64_attention_plain`.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from .. import _build
 
 MASK_VALUE = float(torch.finfo(torch.float32).min)
 
-#: kernel launches made by :func:`flash64_attention`
+#: kernel launches made by :func:`flash64_attention`, one per call
 launches = 0
 
 
@@ -85,7 +86,7 @@ def _lib():
     lib = _build.load("flash64")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash64_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, p]
+        lib.flash64_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, p]
         lib.flash64_launch.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
@@ -133,10 +134,11 @@ def flash64_attention(
     tensors = [q, k, v, kv_start, kv_end] + ([cos, sin] if cos is not None else [])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash64 kernel needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash64 kernel needs 16-byte aligned q/k/v")
+    if any(t.data_ptr() % 16 for t in tensors if t.dtype != torch.int32):
+        raise ValueError("flash64 kernel needs 16-byte aligned q/k/v/cos/sin")
     B, S, F = q.shape
     out = torch.empty_like(q)
+    k_rot = torch.empty_like(k) if cos is not None else None
     global launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -146,6 +148,7 @@ def flash64_attention(
                 kv_start.data_ptr(), kv_end.data_ptr(),
                 cos.data_ptr() if cos is not None else None,
                 sin.data_ptr() if sin is not None else None,
+                k_rot.data_ptr() if k_rot is not None else None,
                 out.data_ptr(), B, S, F // 64, float(sm_scale), stream,
             ),
             "flash64_launch",

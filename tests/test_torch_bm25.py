@@ -241,3 +241,86 @@ def test_overflow_route_without_pallas_runs_k5_on_card(cuda, corpus):
                                    dir_col=torch.from_numpy(idx.dir_ids), dir_filter=torch.tensor(-1, dtype=torch.int32))
     np.testing.assert_array_equal(i1.cpu().numpy(), ri.numpy())
     np.testing.assert_allclose(v1.cpu().numpy(), rv.numpy(), rtol=1e-6)
+
+
+def _k5_rows(seed, B, P, N):
+    """``[B, P]`` postings of the overflow scatter's kinds: random term slices
+    (a doc repeats across slices), ids out of range on both sides, sentinel
+    postings (id N, value 0). With B = 3, row 1 is all sentinels and row 2
+    puts every posting into the first doc tile, as a Zipf head would."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, N, size=(B, P)).astype(np.int32)
+    vals = (rng.random((B, P)) * 8).astype(np.float32)
+    odd = rng.random((B, P))
+    ids[odd < 0.02] = -1 - rng.integers(0, 3, size=int((odd < 0.02).sum()))
+    ids[(odd >= 0.02) & (odd < 0.04)] = N + 7
+    sentinel = (odd >= 0.04) & (odd < 0.1)
+    ids[sentinel], vals[sentinel] = N, 0.0
+    if B == 3:
+        ids[1], vals[1] = N, 0.0
+        ids[2] = rng.integers(0, min(N, bm25_scatter.TILE_DOCS), size=P)
+    return ids, vals
+
+
+def _posting_order(ids, vals, N):
+    """f32 sums of each doc's in-range postings in posting order."""
+    out = np.zeros((ids.shape[0], N), np.float32)
+    for r in range(ids.shape[0]):
+        ok = (ids[r] >= 0) & (ids[r] < N)
+        np.add.at(out[r], ids[r][ok], vals[r][ok])
+    return out
+
+
+@pytest.mark.parametrize("B,P,N", [(1, 1000, 20_000), (3, 5000, 3000), (3, 700, 1)])
+def test_plain_scatter_sums_in_posting_order(B, P, N):
+    # the CPU plain version is K5's oracle bit for bit: it adds each doc's
+    # postings in posting order, as the kernel does
+    ids, vals = _k5_rows(B + P, B, P, N)
+    got = bm25_scatter.bm25_scores_plain(torch.from_numpy(ids), torch.from_numpy(vals), N).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), _posting_order(ids, vals, N).view(np.uint32))
+
+
+@pytest.mark.parametrize("B,P,N", [(1, 262_144, 20_000), (3, 0, 1), (2, 1000, 131_072), (1, 513, 131_073),
+                                   (1, 4096, 5_000_000)])
+def test_scatter_layout_covers_every_doc(B, P, N):
+    tile, n_tiles, n_sub, n_scratch = bm25_scatter.scatter_layout(B, P, N)
+    assert tile % bm25_scatter.TILE_DOCS == 0 and n_tiles <= bm25_scatter.MAX_TILES
+    assert (n_tiles - 1) * tile < N <= n_tiles * tile  # every doc in one tile, no empty tile
+    assert tile == bm25_scatter.TILE_DOCS or N > bm25_scatter.TILE_DOCS * bm25_scatter.MAX_TILES
+    assert (n_sub - 1) * bm25_scatter.SUB < P <= n_sub * bm25_scatter.SUB or P == n_sub == 0
+    assert n_scratch == B * (n_tiles * n_sub + n_tiles + 2 * P)
+    if (B, P, N) == (1, 262_144, 20_000):  # the smoke's long query
+        assert (tile, n_tiles, n_sub) == (128, 157, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [0, 1000, 32_768, 262_144])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("N", [20_000, 1])
+def test_scatter_kernel_in_posting_order_on_card(cuda, B, P, N):
+    # N = 20000 is not a multiple of the 128-doc tile; P = 1000 is not a
+    # multiple of the 512-posting sub-chunk; row 2 of B = 3 is skewed
+    ids, vals = _k5_rows(B * 7 + P + N, B, P, N)
+    ids_t, vals_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(vals).to(cuda)
+    before = bm25_scatter.launches
+    got = bm25_scatter.bm25_scores(ids_t, vals_t, N)
+    again = bm25_scatter.bm25_scores(ids_t, vals_t, N)
+    torch.cuda.synchronize()
+    assert bm25_scatter.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    ref = bm25_scatter.bm25_scores_plain(torch.from_numpy(ids), torch.from_numpy(vals), N)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), ref.numpy().view(np.uint32))
+    if B == 3:
+        assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_wide_tiles_on_card(cuda):
+    # more docs than MAX_TILES tiles of 128: each tile holds 256 docs and the
+    # sum walks them 128 at a time
+    N = bm25_scatter.TILE_DOCS * bm25_scatter.MAX_TILES + 5
+    ids, vals = _k5_rows(5, 3, 40_000, N)
+    got = bm25_scatter.bm25_scores(torch.from_numpy(ids).to(cuda), torch.from_numpy(vals).to(cuda), N)
+    ref = bm25_scatter.bm25_scores_plain(torch.from_numpy(ids), torch.from_numpy(vals), N)
+    assert bm25_scatter.scatter_layout(3, 40_000, N)[0] == 2 * bm25_scatter.TILE_DOCS
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), ref.numpy().view(np.uint32))

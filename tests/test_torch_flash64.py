@@ -141,6 +141,34 @@ def test_wrapper_rejects_bad_shapes():
         f64.flash64_attention(torch.zeros(1, 8, 96), torch.zeros(1, 8, 96), torch.zeros(1, 8, 96), r, r, 1.0)
 
 
+def _ranges_for(side, S, n_real, dev):
+    """``(kv_start, kv_end)`` of rows holding ``n_real`` real tokens, padded
+    on ``side``; a row of 0 has an empty range."""
+    start = [S - n for n in n_real] if side == "left" else [0] * len(n_real)
+    end = [S] * len(n_real) if side == "left" else list(n_real)
+    return (torch.tensor(start, dtype=torch.int32, device=dev), torch.tensor(end, dtype=torch.int32, device=dev))
+
+
+def _rope_for(S, dev):
+    inv = 1.0 / (10000.0 ** (torch.arange(0, 64, 2, dtype=torch.float32) / 64))
+    ang = torch.arange(S, dtype=torch.float32)[:, None] * inv[None, :]
+    ang = torch.cat([ang, ang], dim=-1)
+    return ang.cos().to(dev), ang.sin().to(dev)
+
+
+def _check_on_card(q, k, v, kv_s, kv_e, cos, sin):
+    before = f64.launches
+    got = f64.flash64_attention(q, k, v, kv_s, kv_e, 0.125, cos, sin)
+    torch.cuda.synchronize()
+    assert f64.launches == before + 1
+    ref = f64.flash64_attention_plain(q, k, v, kv_s, kv_e, 0.125, cos, sin)
+    assert torch.isfinite(got.float()).all()  # pad rows included
+    pos = torch.arange(q.shape[1], device=q.device)
+    real = (pos[None, :] >= kv_s[:, None]) & (pos[None, :] < kv_e[:, None])
+    _assert_rows_close(got[real], ref[real])
+    return got
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -156,30 +184,8 @@ def test_kernel_matches_plain_on_card(cuda, rope, side):
     # tiles long, where a fault in one tile or key moves the output least
     B, S, H = 3, 1000, 4
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _qkv(B, S, H, seed=11))
-    n_real = [1000, 731, 9]
-    if side == "left":
-        start = [S - n for n in n_real]
-        end = [S] * B
-    else:
-        start = [0] * B
-        end = n_real
-    kv_s = torch.tensor(start, dtype=torch.int32, device=cuda)
-    kv_e = torch.tensor(end, dtype=torch.int32, device=cuda)
-    cos = sin = None
-    if rope:
-        inv = 1.0 / (10000.0 ** (torch.arange(0, 64, 2, dtype=torch.float32) / 64))
-        ang = torch.arange(S, dtype=torch.float32)[:, None] * inv[None, :]
-        ang = torch.cat([ang, ang], dim=-1)
-        cos, sin = ang.cos().to(cuda), ang.sin().to(cuda)
-    before = f64.launches
-    got = f64.flash64_attention(q, k, v, kv_s, kv_e, 0.125, cos, sin)
-    torch.cuda.synchronize()
-    assert f64.launches == before + 1
-    ref = f64.flash64_attention_plain(q, k, v, kv_s, kv_e, 0.125, cos, sin)
-    assert torch.isfinite(got.float()).all()
-    pos = torch.arange(S, device=cuda)
-    real = (pos[None, :] >= kv_s[:, None]) & (pos[None, :] < kv_e[:, None])
-    _assert_rows_close(got[real], ref[real])
+    kv_s, kv_e = _ranges_for(side, S, [1000, 731, 9], cuda)
+    _check_on_card(q, k, v, kv_s, kv_e, *(_rope_for(S, cuda) if rope else (None, None)))
 
 
 @pytest.mark.cuda
@@ -194,3 +200,32 @@ def test_kernel_single_ragged_tile_and_empty_row_on_card(cuda):
     assert torch.isfinite(got.float()).all()
     assert (got[1] == 0).all()  # rows that visit no key tile write zeros
     _assert_rows_close(got[0, 3:], ref[0, 3:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("S", [1064, 8])
+def test_kernel_ragged_lengths_and_empty_row_on_card(cuda, S, side, rope):
+    # the last 128-row q tile and 64-key tile are ragged at both S; rows of
+    # full length, 40, 1 and none
+    B, H = 4, 4
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _qkv(B, S, H, seed=S + len(side) + rope))
+    kv_s, kv_e = _ranges_for(side, S, [S, min(40, S), 1, 0], cuda)
+    cos, sin = _rope_for(S, cuda) if rope else (None, None)
+    got = _check_on_card(q, k, v, kv_s, kv_e, cos, sin)
+    assert (got[3] == 0).all()  # the empty row visits no key tile and writes zeros
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_reranker_shape_on_card(cuda):
+    # the pipeline's MiniCPM batch: B=32, S=1216, 36 heads, RoPE, right
+    # padding, lengths between 60% and all of S, one full and one 40 long
+    B, S, H = 32, 1216, 36
+    rng = np.random.default_rng(1216)
+    lengths = rng.integers(S * 6 // 10, S + 1, size=B).tolist()
+    lengths[0], lengths[-1] = S, 40
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H * 64), dtype=np.float32)).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    kv_s, kv_e = _ranges_for("right", S, lengths, cuda)
+    _check_on_card(q, k, v, kv_s, kv_e, *_rope_for(S, cuda))

@@ -1,16 +1,23 @@
-"""Where the time of one Gemma2 reranker batch goes on the card.
+"""Where the time of one reranker batch goes on the card.
 
-Builds the port's ``GemmaCostWiseReranker`` at the width and depth of
-bge-reranker-v2.5-gemma2-lightweight (Gemma2-9B body, random bf16 weights
-from a seed, the reference's operating point: cutoff 28, compression at
-layer 24 by 2, ``max_length`` 1024), scores ``--batches`` 32-pair batches
-of ~1100-token pairs with CUDA-event timing, then one batch under
-``torch.profiler``. Prints the wall time per batch, the device's busy and
-idle shares of the profiled batch, the device time by kind (K4, cuBLAS
-GEMMs, the rest) and the kernels that take the most time.
+Builds one of the port's rerankers at full width and depth with random bf16
+weights from a seed, at the reference's operating point (``max_length``
+1024), and scores ``--batches`` 32-pair batches of ~1100-token pairs with
+CUDA-event timing, then one batch under ``torch.profiler``:
+
+* ``--model gemma``: ``GemmaCostWiseReranker`` at the width and depth of
+  bge-reranker-v2.5-gemma2-lightweight (Gemma2-9B body; cutoff 28,
+  compression at layer 24 by 2), attention through K4;
+* ``--model minicpm``: ``MiniCPMLayerWiseReranker`` at the width and depth of
+  bge-reranker-v2-minicpm-layerwise (cutoff 28, heads from layer 8, right
+  padding), attention through K1.
+
+Prints the wall time per batch, the device's busy and idle shares of the
+profiled batch, the device time by kind (the attention kernel, cuBLAS GEMMs,
+the rest) and the kernels that take the most time.
 
 Run on a machine with one CUDA card:
-    python tools/torch_profile_gemma.py [--batches 3] [--batch 32]
+    python tools/torch_profile_rerank.py [--model gemma|minicpm] [--batches 3] [--batch 32]
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from easyrag_tpu_torch.models.gemma import GemmaCostWiseReranker  # noqa: E402
 from easyrag_tpu_torch.models.layers import DecoderConfig  # noqa: E402
+from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker  # noqa: E402
+from easyrag_tpu_torch.ops import flash64 as k1  # noqa: E402
 from easyrag_tpu_torch.ops import flash_softcap as k4  # noqa: E402
 
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
@@ -38,6 +47,8 @@ def kind(name: str) -> str:
     low = name.lower()
     if "flash_softcap" in low:
         return "K4"
+    if "flash64" in low or "rope_k" in low:
+        return "K1"
     if any(m in low for m in GEMM_MARKS):
         return "GEMM"
     return "other"
@@ -57,6 +68,7 @@ def make_pairs(batch: int, seed: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("gemma", "minicpm"), default="gemma")
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
@@ -65,13 +77,23 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     print(cs.run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0])
-    cfg = DecoderConfig(**cs.GEMMA2_9B)
-    scorer = GemmaCostWiseReranker(
-        cfg, cs.CharTokenizer(cfg.vocab_size), cutoff_layer=cs.GEMMA_CUTOFF, compress_layer=cs.GEMMA_COMPRESS,
-        compress_ratio=2, max_length=cs.MAX_LENGTH, device=dev, dtype=torch.bfloat16,
-    ).init_random_(torch.Generator(device=dev).manual_seed(cs.SEED + 7), start_layer=cs.GEMMA_START)
+    gen = torch.Generator(device=dev)
+    if args.model == "gemma":
+        cfg = DecoderConfig(**cs.GEMMA2_9B)
+        scorer = GemmaCostWiseReranker(
+            cfg, cs.CharTokenizer(cfg.vocab_size), cutoff_layer=cs.GEMMA_CUTOFF, compress_layer=cs.GEMMA_COMPRESS,
+            compress_ratio=2, max_length=cs.MAX_LENGTH, device=dev, dtype=torch.bfloat16,
+        ).init_random_(gen.manual_seed(cs.SEED + 7), start_layer=cs.GEMMA_START)
+        attn, mod = "K4", k4
+    else:
+        cfg = DecoderConfig(**cs.RERANKER)
+        scorer = MiniCPMLayerWiseReranker(
+            cfg, cs.CharTokenizer(cfg.vocab_size), start_layer=8, cutoff_layer=28, max_length=cs.MAX_LENGTH,
+            device=dev, dtype=torch.bfloat16,
+        ).init_random_(gen.manual_seed(cs.SEED))
+        attn, mod = "K1", k1
     pairs = make_pairs(args.batch, cs.SEED)
-    ids, _, _, _ = scorer.build_inputs(pairs)
+    ids = scorer.build_inputs(pairs)[0]
     print(f"batch {args.batch} pairs, padded length {ids.shape[1]}")
     scorer.score_pairs(pairs)  # warm-up
     torch.cuda.synchronize()
@@ -88,13 +110,13 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    k4_0 = k4.launches
+    launches_0 = mod.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         scorer.score_pairs(pairs)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_kind = {"K4": 0.0, "GEMM": 0.0, "other": 0.0}
+    by_kind = {attn: 0.0, "GEMM": 0.0, "other": 0.0}
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -102,11 +124,11 @@ def main() -> int:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        by_kind[kind(e.key)] += us / 1e3
+        by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) + us / 1e3
         kernels.append((us / 1e3, e.count, e.key))
     busy = sum(by_kind.values())
     print(f"profiled batch: wall {wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}), "
-          f"idle {1 - busy / wall:.1%}; K4 launches {k4.launches - k4_0}")
+          f"idle {1 - busy / wall:.1%}; {attn} launches {mod.launches - launches_0}")
     for name, ms in by_kind.items():
         print(f"  {name}: {ms:.1f} ms ({ms / busy:.1%} of device time)")
     print("kernels by device time:")
