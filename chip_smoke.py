@@ -7,8 +7,9 @@ Phases (each one raises on failure; nothing falls back to the CPU):
 
 0. environment: Python/torch/CUDA versions, the card's ``nvidia-smi`` name
    and power limit, ``nvcc``, and which of yaml/jieba/transformers import;
-1. build the five CUDA kernels from ``easyrag_tpu_torch/csrc``, one ``nvcc``
-   per source, all started together; print each one's registers and spills;
+1. build the five CUDA kernels from ``easyrag_tpu_torch/csrc`` (the sources
+   and their shared header ``attention_sm90.cuh``), one ``nvcc`` per source,
+   all started together; print each one's registers and spills;
 2. each kernel against its plain PyTorch version on the card: K1
    (``flash64_attention``) at B=4, S=1064, H=36 with and without RoPE on
    both padding sides, and at S=1064 and S=8 (ragged last tiles) with rows
@@ -22,8 +23,10 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    copies of the weights four times the size of the L2, as a decode step
    reads every layer's weights from HBM),
    K3 (``flash_attention``) at B=1, S=7680 and at B=4, S=2048 left-padded,
-   28 query heads on 4 KV heads; max error and median times from CUDA
-   events;
+   28 query heads of 128 on 4 KV heads, then at head_dim 64 (28 on 4) and
+   256 (16 on 8), both padding sides, at S=2048 and S=200 with ragged and
+   empty rows (an empty row must be zero); max error, median times from CUDA
+   events, and SDPA's time on the same inputs;
 3. the port's ``EasyRAGPipeline.run`` on ``configs/easyrag.yaml`` over a
    seeded synthetic corpus of 20,000 chunks, with the full-width
    bge-reranker-v2-minicpm-layerwise (hidden 2304, 36x64 heads, 40 layers,
@@ -47,15 +50,17 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    phase 3's three queries through the same pipeline, its LLM the shared
    ``BatchingLocalLLM``. Kernel launch counts are reset just before the three
    runs and read just after; K2 and K3 must run on every answer. Then the
-   three prompts in one batched dispatch, the share of its tokens equal to
-   plain greedy decoding, a 2-layer cut of the same tree on the card against
-   the CPU in f32, and the peak device memory;
+   three prompts in one batched dispatch, whose tokens must equal plain
+   greedy decoding's on every active row (and so must those of the verify
+   path with blocks of one token), a 2-layer cut of the same tree on the card
+   against the CPU in f32, and the peak device memory;
 6. the Gemma2 cost-wise reranker (bge-reranker-v2.5-gemma2-lightweight at
    its Gemma2-9B body's full width and depth: 42 layers, hidden 3584, 16x256
    heads on 8, softcap 50, vocab 256,000; random bf16 weights from a seeded
    ``torch.Generator``, heads 8..42): K4 (``flash_softcap_attention``)
    against its plain version at the reranker's shapes (B=32, S=1152 and
-   S=640, B=4, S=136 ragged, right padded); then phase 3's three queries
+   S=640, B=4, S=136 ragged, right padded; compiled ``flex_attention`` timed
+   at both B=32 shapes); then phase 3's three queries
    through ``EasyRAGPipeline.run`` with this reranker behind ``LLMRerank``
    (cutoff 28, compression at layer 24 by 2, 32-pair batches). Kernel launch
    counts are reset just before the three runs and read just after; K4 must
@@ -454,17 +459,24 @@ def k2_compare(torch, k2, x, w, scale):
     return got, float(diff.max()), ratio
 
 
-def k3_case(torch, gen, B, S, lengths, side="left"):
-    """Qwen2-7B-shaped K3 inputs (28 query heads of 128 on 4 KV heads), each
-    row padded to its own length: on the left as the generator's prefill
-    pads, on the right as the gte-Qwen2 embedder pads."""
+def k3_case(torch, gen, B, S, lengths, side="left", nh=28, nkv=4, hd=128):
+    """K3 inputs, Qwen2-7B-shaped by default (28 query heads of 128 on 4 KV
+    heads), each row padded to its own length: on the left as the
+    generator's prefill pads, on the right as the gte-Qwen2 embedder pads."""
     dev = torch.device("cuda")
-    q = torch.randn(B, S, 28 * 128, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, S, 4 * 128, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, S, nh * hd, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, nkv * hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     n = torch.tensor(lengths, dtype=torch.int32, device=dev)
     full = torch.full((B,), S, dtype=torch.int32, device=dev)
     kv_s, kv_e = (S - n, full) if side == "left" else (torch.zeros_like(n), n)
-    return (q, k, v, kv_s, kv_e, 128 ** -0.5, 4)
+    return (q, k, v, kv_s, kv_e, hd ** -0.5, nkv)
+
+
+def k3_flop(np, args) -> int:
+    """Causal QK^T + PV over the (query, key) pairs the key ranges leave, on
+    real rows."""
+    q, k, _, kv_s, kv_e, _, nkv = args
+    return 4 * q.shape[-1] * causal_pairs(np, q.shape[1], kv_s.cpu().numpy(), kv_e.cpu().numpy())
 
 
 def k3_plain_slices(k3, args, rows):
@@ -477,17 +489,21 @@ def k3_plain_slices(k3, args, rows):
 
 
 def k3_compare(torch, k3, args, rows=None):
-    """K3 against its plain version on the real rows, per 128-wide head row;
-    the plain version runs over slices of ``rows`` batch rows when given."""
+    """K3 against its plain version on the real rows, per head row (head_dim
+    values); the plain version runs over slices of ``rows`` batch rows when
+    given. A batch row with no real token must come out zero."""
     got = k3.flash_attention(*args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got.float()).all()), "K3 output has non-finite values (pad rows included)")
-    q, _, _, kv_s, kv_e = args[:5]
+    q, k, _, kv_s, kv_e, _, nkv = args
+    hd = k.shape[-1] // nkv
+    empty = kv_e <= kv_s
+    check(bool((got[empty] == 0).all()), "K3: a row with no key is not zero")
     pos = torch.arange(q.shape[1], device=q.device)[None, :]
     real = (pos >= kv_s[:, None]) & (pos < kv_e[:, None])
     err = row_rel = 0.0
     for sl, ref in k3_plain_slices(k3, args, rows or q.shape[0]):
-        g, r = (t.float()[real[sl]].reshape(-1, 128) for t in (got[sl], ref))
+        g, r = (t.float()[real[sl]].reshape(-1, hd) for t in (got[sl], ref))
         diff = (g - r).abs()
         bound = r.abs().amax(dim=1, keepdim=True)
         err, row_rel = max(err, float(diff.max())), max(row_rel, float((diff / bound.clamp_min(1e-30)).max()))
@@ -548,21 +564,31 @@ def phase_new_kernels(torch, np, k2, k3):
         same = all(torch.equal(by_rows[32][:r], by_rows[r]) for r in (1, 4, 8))
         check(same, f"K2 {name}: rows of the R=32 launch differ from the R=1, 4 and 8 launches")
         say(f"K2 {name}: the first rows of the R=32 launch equal the R=1, 4 and 8 launches bit for bit")
-    for B, S, lengths in ((1, 7680, [7680]), (4, 2048, [2048, 1500, 700, 40])):
-        args = k3_case(torch, gen, B, S, lengths)
+    # the prefill's shape and a left-padded batch at head_dim 128 (the main
+    # path), then head_dim 64 with grouped KV heads (28 on 4) and head_dim 256
+    # (16 on 8), both padding sides, ragged rows and an empty one
+    ragged = [2048, 1500, 700, 40]
+    cases = [(1, 7680, [7680], "left", 28, 4, 128), (4, 2048, ragged, "left", 28, 4, 128)]
+    for side in ("left", "right"):
+        cases += [(4, 2048, ragged, side, 28, 4, 64), (4, 2048, ragged, side, 16, 8, 256),
+                  (4, 200, [200, 130, 1, 0], side, 28, 4, 64), (4, 200, [200, 130, 1, 0], side, 16, 8, 256)]
+    for B, S, lengths, side, nh, nkv, hd in cases:
+        args = k3_case(torch, gen, B, S, lengths, side, nh, nkv, hd)
         err, row_rel = k3_compare(torch, k3, args)
         errs["K3"] = max(errs["K3"], err)
         ms = cuda_ms(torch, lambda: k3.flash_attention(*args), reps=5)
         plain = cuda_ms(torch, lambda: k3.flash_attention_plain(*args), reps=3, warmup=1)
-        times[("K3", B, S)] = (ms, plain)
+        times[("K3", B, S, side, hd)] = (ms, plain)
         q, k, v, kv_s, kv_e, scale, nkv = args
-        # causal QK^T + PV over the pairs the key ranges leave
-        flop = 4 * 28 * 128 * causal_pairs(np, S, kv_s.cpu().numpy(), kv_e.cpu().numpy())
-        lib = sdpa_ms(torch, q, k, v, 28, nkv, kv_s, kv_e, scale)
+        flop = k3_flop(np, args)
+        lib = sdpa_ms(torch, q, k, v, nh, nkv, kv_s, kv_e, scale)
+        b3 = bound(flop, 2 * q.nbytes + k.nbytes + v.nbytes)
         if B == 1:
-            extra["K3"] = (*bound(flop, 2 * q.nbytes + k.nbytes + v.nbytes), lib)
-        say(f"K3 B={B} S={S} lengths {lengths}: max_abs_err {err:.3e} (row-relative {row_rel:.3e}), all finite; "
-            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, SDPA {lib:.3f} ms")
+            extra["K3"] = (*b3, lib)
+        say(f"K3 B={B} S={S} {nh}x{hd} on {nkv} pad={side} lengths {lengths}: max_abs_err {err:.3e} (row-relative "
+            f"{row_rel:.3e}), all finite; kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {b3[0] / ms:.1%} of the "
+            f"bound), plain {plain:.3f} ms, SDPA {lib:.3f} ms (kernel {lib / ms:.2f}x as fast)")
+        del args, q, k, v
     return errs, times, extra
 
 
@@ -1020,13 +1046,19 @@ def phase_generator(torch, np, pipeline, queries, k1, k2, k3, k5):
     share = float((spec_tok == plain_tok).mean())
     first_diff = [int(np.argmax(a != b)) if (a != b).any() else None for a, b in zip(spec_tok, plain_tok)]
     say(f"batched: 3 prompts in one dispatch at B=4 (bucket {gs['bucket']}): prefill {gs['prefill_ms']:.1f} ms, "
-        f"{gs['steps']} verify blocks, {n_tok} tokens in {secs:.2f} s ({n_tok / secs:.1f} tokens/s); plain greedy "
-        f"(spec 0) {ps['steps']} steps, {ps['decode_ms'] / max(ps['steps'], 1):.2f} ms per step; tokens equal to "
-        f"plain greedy: {share:.3f} (first difference per row at {first_diff})")
+        f"{gs['steps']} verify blocks, {n_tok} tokens in {secs:.2f} s ({n_tok / secs:.1f} tokens/s, "
+        f"{gs['decode_ms'] / max(gs['steps'], 1):.2f} ms per verify block); plain greedy (spec 0) {ps['steps']} "
+        f"steps, {ps['decode_ms'] / max(ps['steps'], 1):.2f} ms per step; tokens equal to plain greedy: {share:.3f} "
+        f"(first difference per row at {first_diff})")
+    # a verify block takes its norms and cache attention one position at a
+    # time with the single step's shapes, and K2 sums every output in an order
+    # that does not depend on the row count: the tokens are plain greedy's
+    check(spec_tok.shape == plain_tok.shape and share == 1.0,
+          f"speculative decoding (spec {GEN_SPEC}) differs from plain greedy: {share:.3f} of the tokens equal, "
+          f"first difference per row at {first_diff}")
     # blocks of one token through the verify path have the plain steps' shapes
     # (K2 at R=4, attention at Q=1 over the same slots), so their tokens must
-    # equal plain greedy's bit for bit: a difference above comes from the
-    # rounding of the larger verify shapes, not from the speculation logic
+    # equal plain greedy's bit for bit too
     from easyrag_tpu_torch.models import decode as td
 
     bucket, pad_id = gs["bucket"], model._pad_id()
@@ -1168,17 +1200,17 @@ def phase_gemma(torch, np, pipeline, queries, mods):
         err = max(err, e)
         ms = cuda_ms(torch, lambda: k4.flash_softcap_attention(*args))
         plain = cuda_ms(torch, lambda: k4.flash_softcap_attention_plain(*args), reps=3, warmup=1)
-        library = flex_softcap_ms(torch, k4, args, real) if (B, S) == (32, 1152) else None
+        library = flex_softcap_ms(torch, k4, args, real) if B == 32 else None
         q, k, v = args[:3]
         # causal QK^T + PV of the real rows only, as K1's and K3's bounds count
         # (right padding: a real row's keys are all real)
         flop = 4 * 16 * 256 * sum(n * (n + 1) // 2 for n in lengths)
         b4 = bound(flop, 2 * q.nbytes + k.nbytes + v.nbytes)
         k4_times[(B, S)] = (ms, plain, *b4, library)
-        lib = f"; flex_attention {library:.3f} ms" if library is not None else ""
+        lib = f"; flex_attention {library:.3f} ms (kernel {library / ms:.2f}x as fast)" if library is not None else ""
         say(f"K4 B={B} S={S} 16x256 on 8, softcap 50: max_abs_err {e:.3e} (row-relative {row_rel:.3e}), all finite; "
-            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms{lib}; "
-            f"bound {b4[0]:.4f} ms ({b4[1]})")
+            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s on real rows, {b4[0] / ms:.1%} of the bound), "
+            f"plain {plain:.3f} ms{lib}; bound {b4[0]:.4f} ms ({b4[1]})")
         del args, real, q, k, v
     torch.cuda.empty_cache()
 
@@ -1352,12 +1384,13 @@ def k3_embedder_cases(torch, np, k3, boot, queries):
         ms = cuda_ms(torch, lambda: k3.flash_attention(*args), reps=5)
         plain = cuda_ms(torch, plain_call, reps=2, warmup=1)
         q, k, v, kv_s, kv_e, scale, nkv = args
-        flop = 4 * 28 * 128 * causal_pairs(np, S, kv_s.cpu().numpy(), kv_e.cpu().numpy())
+        flop = k3_flop(np, args)
         b3 = bound(flop, 2 * q.nbytes + k.nbytes + v.nbytes)
         lib = sdpa_ms(torch, q, k, v, 28, nkv, kv_s, kv_e, scale)
         times[(kind, B, S)] = (ms, plain, *b3, lib)
-        say(f"{head}; kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s on real rows), plain {plain:.3f} ms "
-            f"({-(-B // rows)} slice(s) of {rows} rows), SDPA {lib:.3f} ms; bound {b3[0]:.4f} ms ({b3[1]})")
+        say(f"{head}; kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s on real rows, {b3[0] / ms:.1%} of the "
+            f"bound), plain {plain:.3f} ms ({-(-B // rows)} slice(s) of {rows} rows), SDPA {lib:.3f} ms (kernel "
+            f"{lib / ms:.2f}x as fast); bound {b3[0]:.4f} ms ({b3[1]})")
         del args, q, k, v
         torch.cuda.empty_cache()
     return err, times
@@ -1663,7 +1696,7 @@ def main() -> int:
         entry("int4_matvec", "int4_matvec.cu", "easyrag_tpu/ops/int4_matvec.py:112", gen_launches["K2"],
               new_errs["K2"], *new_times[("gateup", 1)], *extra["K2"]),
         entry("flash_attention", "flash_attention.cu", "easyrag_tpu/models/decode.py:130", gen_launches["K3"],
-              new_errs["K3"], *new_times[("K3", 1, 7680)], *extra["K3"]),
+              new_errs["K3"], *new_times[("K3", 1, 7680, "left", 128)], *extra["K3"]),
         entry("flash_softcap_attention", "flash_softcap.cu", "easyrag_tpu/ops/flash_softcap.py:136",
               gemma_launches["K4"], k4_err, *k4_times[(32, 1152)]),
         entry("flash_attention", "flash_attention.cu", "easyrag_tpu/models/layers.py:351", dense_launches["K3"],

@@ -2,14 +2,15 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
 one file compiles in seconds. The shared library lands in ``build/kernels/``
-at the repository root (git-ignored), under a name that hashes the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. A missing ``nvcc`` or a failed build raises: there is no fallback.
+at the repository root (git-ignored), under a name that hashes the source,
+every shared header ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -44,11 +45,15 @@ def find_nvcc() -> str:
 
 
 def _paths(name: str):
-    """``(source, library)``: the library's name hashes the source and flags."""
+    """``(source, library)``: the library's name hashes the source, every
+    header of ``csrc/`` (a source may include any of them) and the flags."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    digest = hashlib.sha1()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _compile(names) -> None:

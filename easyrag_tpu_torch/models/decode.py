@@ -7,15 +7,24 @@ Two phases, as in the JAX package:
   bucket. Each layer's rotary-encoded K/V land in a preallocated
   ``[B, S + max_new, kv_heads, head_dim]`` cache. Attention runs through the
   K3 port (``ops/flash_attention.py``) where the JAX package runs the stock
-  kernel (head_dim and S multiples of 128; the CUDA kernel raises at a head
-  dim other than 128) and through the einsum formulation otherwise; the int4
-  projections at more than 64 rows unpack
+  kernel (head_dim and S multiples of 128; the CUDA kernel takes head_dim
+  128 and 256 of those and raises at 384 and up) and through the einsum
+  formulation otherwise; the int4 projections at more than 64 rows unpack
   and take one large ``torch.matmul``.
 * **decode** -- single-token steps (or, with speculation, verify blocks of
   ``draft_len + 1`` tokens): projections through K2 for int4 trees, rotary at
-  the true per-row position, einsum attention against the cache with a
-  validity mask (``finfo(f32).min`` on invalid slots, never ``-inf``), and a
-  greedy argmax over the LM head.
+  the true per-row position, attention against the cache (two cuBLAS
+  products, f32 logits) with a validity mask (``finfo(f32).min`` on invalid slots, never ``-inf``), and a
+  greedy argmax over the LM head. A verify block takes the two ops whose
+  rounding depends on its row count one block position at a time, with a
+  single step's shapes (``tools/torch_probe_verify.py`` found both on the
+  H100): the cache attention's cuBLAS products over the same ``S + max_new``
+  slots (cuBLAS picks its tiling by the number of query rows) and the
+  RMSNorms' f32 mean of squares (torch splits a row's reduction differently
+  at ``B * Q`` rows than at ``B``, which flips a bf16 rounding of the output
+  now and then). So on the card the tokens equal plain greedy's bit for bit
+  wherever the projections are row-invariant too (K2's int4 path; a dense
+  cuBLAS projection is not).
 
 What differs from JAX: the KV cache and the token buffers are updated IN
 PLACE (JAX's arrays are immutable); the loops are Python loops that read
@@ -85,7 +94,7 @@ def _prefill_layer(
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
     # K3 wherever the JAX package runs the stock kernel; its einsum path elsewhere.
-    # The CUDA kernel takes head_dim 128 only and raises at 256, 384, ...
+    # The CUDA kernel takes head_dim 128 and 256 and raises at 384, 512, ...
     attend = flash_attention if use_flash(hd, s) else flash_attention_plain
     out = attend(
         q.reshape(b, s, nh * hd), k.reshape(b, s, nkv * hd), v.reshape(b, s, nkv * hd).contiguous(),
@@ -94,18 +103,51 @@ def _prefill_layer(
     return mlp_residual(cfg, p, x, out)
 
 
+def _cache_operands(cache: Dict[str, torch.Tensor], t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``t`` cache slots as :func:`_attend_cache`'s operands, made
+    once per layer: f32 keys and the values, each ``[B * nkv, t, hd]`` and
+    contiguous whatever the cache's length."""
+    b, _, nkv, hd = cache["k"].shape
+    keys = cache["k"][:, :t].transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+    values = cache["v"][:, :t].transpose(1, 2).contiguous()
+    return keys.reshape(b * nkv, t, hd), values.reshape(b * nkv, t, hd)
+
+
 def _attend_cache(
-    cfg: DecoderConfig, q: torch.Tensor, cache: Dict[str, torch.Tensor], allowed: torch.Tensor, dtype
+    cfg: DecoderConfig, q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor, allowed: torch.Tensor, dtype
 ) -> torch.Tensor:
-    """Queries ``[B, Q, nh, hd]`` against every cache slot, ``allowed``
-    ``[B, Q, T]``; f32 logits and softmax, probabilities in ``dtype``."""
+    """Queries ``[B, Q, nh, hd]`` against :func:`_cache_operands`' keys and
+    values, ``allowed`` ``[B, Q, T]``; f32 logits and softmax, probabilities
+    in ``dtype``; ``[B, Q, nh * hd]``. Both products run one position at a
+    time with a single step's shapes (cuBLAS picks its tiling by the number
+    of query rows); the scale, mask and softmax round each row on its own
+    and run over all positions at once."""
     b, qn = q.shape[:2]
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
-    qg = q.reshape(b, qn, nkv, nh // nkv, hd)
-    logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), cache["k"].float()) * hd ** -0.5
-    logits = torch.where(allowed[:, None, None], logits, MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    return torch.einsum("bkgqt,btkd->bqkgd", probs, cache["v"]).reshape(b, qn, nh * hd)
+    g, t = nh // nkv, keys.shape[1]
+    qf, kt = q.float(), keys.transpose(1, 2)
+    logits = torch.stack([torch.bmm(qf[:, j].reshape(b * nkv, g, hd), kt) for j in range(qn)]) * hd ** -0.5
+    logits = torch.where(allowed.transpose(0, 1)[:, :, None, None], logits.view(qn, b, nkv, g, t), MASK_VALUE)
+    probs = torch.softmax(logits, dim=-1).to(dtype).view(qn, b * nkv, g, t)
+    out = torch.stack([torch.bmm(probs[j], values) for j in range(qn)])  # [Q, B * nkv, g, hd]
+    return out.view(qn, b, nh * hd).transpose(0, 1)
+
+
+def _position_means(xf: torch.Tensor) -> torch.Tensor:
+    """``[B, Q, 1]`` f32 means of squares of ``xf`` ``[B, Q, D]``, each
+    position's reduced over a ``[B, 1, D]`` slice, as a single step reduces
+    its ``[B, 1, D]``: torch splits a row's reduction differently at
+    ``B * Q`` rows than at ``B``."""
+    sq = xf.pow(2)
+    return torch.cat([sq[:, j : j + 1].mean(dim=-1, keepdim=True) for j in range(xf.shape[1])], dim=1)
+
+
+def _row_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`rms_norm` of a verify block ``[B, Q, D]`` with
+    :func:`_position_means`; the rest is elementwise, in :func:`rms_norm`'s
+    order."""
+    xf = x.float()
+    return (xf * torch.rsqrt(_position_means(xf) + eps) * weight.float()).to(x.dtype)
 
 
 def _decode_layer(
@@ -123,7 +165,8 @@ def _decode_layer(
     k = apply_rope(k, cos, sin)
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
-    return mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, kv_valid[:, None, :], x.dtype))
+    out = _attend_cache(cfg, q, *_cache_operands(cache, kv_valid.shape[1]), kv_valid[:, None, :], x.dtype)
+    return mlp_residual(cfg, p, x, out)
 
 
 def _verify_layer(
@@ -138,14 +181,19 @@ def _verify_layer(
 ) -> torch.Tensor:
     """One decoder layer over a speculative verify block. K/V of every
     position are written first; rejected slots are never marked valid and
-    the next block overwrites them."""
-    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    the next block overwrites them. The cache attention (over the first
+    ``T`` cache slots, its operands made once for the block) and the norms'
+    reductions run one position at a time with :func:`_decode_layer`'s
+    shapes, so each row rounds as a single step does; the projections take
+    all ``B*Q`` rows at once."""
+    q, k, v = qkv_proj(cfg, p["attn"], _row_norm(x, p["input_norm"], cfg.rms_norm_eps))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
     cache["k"][rows, slots] = k
     cache["v"][rows, slots] = v
-    return mlp_residual(cfg, p, x, _attend_cache(cfg, q, cache, allowed, x.dtype))
+    out = _attend_cache(cfg, q, *_cache_operands(cache, allowed.shape[-1]), allowed, x.dtype)
+    return mlp_residual(cfg, p, x, out, norm=_row_norm)
 
 
 def _lm_logits(cfg: DecoderConfig, params: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
@@ -236,7 +284,7 @@ def generate_greedy(
         h = embed(cfg, params["embed"], tok[:, None], _dtype(params))
         for idx in range(cfg.num_hidden_layers):
             h = _decode_layer(cfg, params["layers"][idx], h, pos, kv_valid, cos, sin, cache[idx])
-        h = rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps)
+        h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)[:, 0]  # [B, 1, D], as a verify position
         tok = _lm_logits(cfg, params, h).argmax(-1)
     if stats is not None:
         stats["steps"] = max(step - 1, 0)
@@ -288,8 +336,9 @@ def generate_greedy_spec(
     """Greedy decode with prompt-lookup speculation: each step verifies
     ``draft_len`` drafted tokens in one forward over ``draft_len + 1``
     positions and keeps the leading run equal to the model's own argmax, so
-    the tokens equal :func:`generate_greedy`'s (exact in f32; in bf16 the
-    verify block's larger products may round differently). Rows progress
+    the tokens equal :func:`generate_greedy`'s (bit for bit where the
+    projections are row-invariant, as K2's int4 path is: the block's cache
+    attention and norm reductions take the single step's shapes). Rows progress
     independently: cache slots, rope positions and output offsets are per
     row. ``stats`` receives ``prefill_ms``, ``steps`` (verify blocks) and
     ``decode_ms``."""
@@ -324,7 +373,9 @@ def generate_greedy_spec(
     start = s - lengths
     rows = torch.arange(b, device=dev)
     j_idx = torch.arange(k1, device=dev)[None, :]
-    t_idx = torch.arange(t_cache, device=dev)[None, None, :]
+    # attention sees the first t_total slots, as generate_greedy's cache holds:
+    # a slot past them belongs to a position that feeds no emitted token
+    t_idx = torch.arange(t_total, device=dev)[None, None, :]
     blocks = 0
     while not bool(done.all()):
         blocks += 1
@@ -334,11 +385,11 @@ def generate_greedy_spec(
         cur = s + n - 1  # cache slot of `last` = its sequence index
         slots = cur[:, None] + j_idx
         cos, sin = rope_tables((lengths + n - 1)[:, None] + j_idx, cfg.hd, cfg.rope_theta)
-        allowed = kv_valid[:, None, :t_cache] | ((t_idx >= cur[:, None, None]) & (t_idx <= slots[:, :, None]))
+        allowed = kv_valid[:, None, :t_total] | ((t_idx >= cur[:, None, None]) & (t_idx <= slots[:, :, None]))
         h = embed(cfg, params["embed"], tokens_in, _dtype(params))
         for idx in range(cfg.num_hidden_layers):
             h = _verify_layer(cfg, params["layers"][idx], h, slots, allowed, cos, sin, cache[idx])
-        h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        h = _row_norm(h, params["final_norm"], cfg.rms_norm_eps)
         preds = _lm_logits(cfg, params, h).argmax(-1).to(torch.int32)  # preds[:, j] follows tokens_in[:, :j+1]
         acc = torch.cumprod((draft == preds[:, :-1]).to(torch.int32), dim=1).sum(dim=1)
         first_eos = torch.where(_is_eos(preds, eos_ids), j_idx, k1).min(dim=1).values

@@ -262,12 +262,16 @@ def qkv_proj(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
     )
 
 
-def mlp_residual(cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+def mlp_residual(
+    cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attn_out: torch.Tensor, norm=rms_norm
+) -> torch.Tensor:
     """The rest of a tree layer after attention: output projection and
-    residual, post-norm SiLU MLP and residual (MiniCPM's residual scale)."""
+    residual, post-norm SiLU MLP and residual (MiniCPM's residual scale).
+    ``norm(x, weight, eps)`` is the post-norm (the decoder's verify block
+    passes one that reduces position by position)."""
     r = cfg.residual_scale
     x = x + linear(attn_out, p["attn"]["o"]) * r
-    return x + mlp(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps)) * r
+    return x + mlp(p["mlp"], norm(x, p["post_norm"], cfg.rms_norm_eps)) * r
 
 
 def attention(
@@ -285,8 +289,8 @@ def attention(
     Padding is a per-row key range. JAX's gate for the stock kernel
     (``layers.py:240-245``, ``:321``), on the inputs alone: a head dim that
     is a multiple of 64 at ``S % 128 == 0`` takes K3, whose CUDA kernel
-    takes head_dim 128 and raises at any other (on the CPU its plain version
-    runs); the einsum formulation runs otherwise (the 64-token bucket of a
+    takes head_dim 64, 128 and 256 and raises at any other (on the CPU its
+    plain version runs); the einsum formulation runs otherwise (the 64-token bucket of a
     short query). Query rows outside the
     key range attend to the range's keys where JAX's segment ids pair them
     with pad keys; no real row reads a pad row, so real rows agree."""

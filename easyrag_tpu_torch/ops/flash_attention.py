@@ -12,8 +12,9 @@ kv_end[b])``; left padding is ``kv_start = S - length``, right padding
 reads KV head ``h // (NH // NKV)``. Logits and softmax are f32; masked logits
 are ``finfo(f32).min``, so every output is finite, pad rows included.
 
-CUDA tensors go through ``csrc/flash_attention.cu`` (head_dim 128, bf16);
-CPU tensors through :func:`flash_attention_plain`.
+CUDA tensors go through ``csrc/flash_attention.cu`` (bf16, head_dim 64, 128
+or 256: the ``wgmma``/TMA body of ``csrc/attention_sm90.cuh``) or raise; CPU
+tensors go through :func:`flash_attention_plain`.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from .. import _build
 from .flash64 import masked_attention
 
-HEAD_DIM = 128  # the kernel's head dim
+HEAD_DIMS = (64, 128, 256)  # the kernel's head dims
 
 #: kernel launches made by :func:`flash_attention`
 launches = 0
@@ -55,7 +56,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        lib.flash_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
@@ -92,8 +93,8 @@ def flash_attention(
         return flash_attention_plain(q, k, v, kv_start, kv_end, sm_scale, num_kv_heads)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    if hd != HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIM}, got {hd} (other head dims: ROADMAP Queue 2, K3)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIMS}, got {hd} (other head dims: ROADMAP Queue 2, K3)")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     if kv_start.dtype != torch.int32 or kv_end.dtype != torch.int32:
@@ -110,7 +111,7 @@ def flash_attention(
         _build.check(
             _lib().flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_start.data_ptr(), kv_end.data_ptr(),
-                out.data_ptr(), B, S, F // hd, num_kv_heads, float(sm_scale), stream,
+                out.data_ptr(), B, S, F // hd, num_kv_heads, hd, float(sm_scale), stream,
             ),
             "flash_attention_launch",
         )

@@ -11,7 +11,8 @@ input: the caller pads on the right, so causality alone keeps pad keys out of
 every real row, and pad rows get a finite average of earlier keys.
 
 CUDA tensors go through ``csrc/flash_softcap.cu`` (bf16, head_dim 128 or 256,
-S a multiple of 8) or raise; CPU tensors go through
+S a multiple of 8: the ``wgmma``/TMA body of ``csrc/attention_sm90.cuh``
+shared with K3) or raise; CPU tensors go through
 :func:`flash_softcap_attention_plain`.
 """
 

@@ -138,6 +138,110 @@ def test_ngram_draft_matches_jax():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def _verify_inputs(tp, q):
+    """The prefill of ``_batch()`` into a speculative cache, and one verify
+    block of ``q`` seeded tokens right after it (slots ``S..S+q-1``)."""
+    tcfg = DecoderConfig(**ARCH)
+    rows, masks = _batch()
+    b, s = rows.shape
+    t_total = s + 6  # max_new 6
+    ids, mask = torch.from_numpy(rows), torch.from_numpy(masks)
+    cache = td.init_cache(tcfg, b, t_total + q - 1, torch.float32, "cpu")
+    td._prefill(tcfg, tp, ids, mask, cache)
+    lengths = mask.sum(dim=1).to(torch.int32)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, ARCH["vocab_size"], (b, q)).astype(np.int32))
+    j_idx = torch.arange(q)[None, :]
+    slots = s + j_idx.expand(b, q)
+    kv_valid = torch.cat([mask > 0, torch.zeros(b, t_total - s, dtype=torch.bool)], dim=1)
+    t_idx = torch.arange(t_total)[None, None, :]
+    allowed = kv_valid[:, None, :] | ((t_idx >= s) & (t_idx <= slots[:, :, None]))
+    return tcfg, cache, tokens, lengths, slots, kv_valid, allowed
+
+
+@pytest.mark.parametrize("form", ["dense", "int4"])
+@torch.inference_mode()
+def test_verify_block_matches_jax_and_single_steps(form):
+    """One verify block of 4 positions through every layer and the head: the
+    port's ``_verify_layer`` (norms and cache attention one position at a
+    time over the first ``S + max_new`` slots) against JAX's in f32, and its
+    row j against the j-th single step (``_decode_layer``) from the same
+    cache state."""
+    from easyrag_tpu_torch.models.layers import rms_norm, rope_tables
+
+    cfg, params = _tree(form)
+    tp = causal_lm_params_from_jax(jax.tree.map(np.asarray, params), "cpu", torch.float32)
+    q = 4
+    tcfg, cache, tokens, lengths, slots, kv_valid, allowed = _verify_inputs(tp, q)
+    s, t_total, eps = _batch()[0].shape[1], allowed.shape[-1], tcfg.rms_norm_eps
+    cos, sin = rope_tables(lengths[:, None] + torch.arange(q)[None, :], tcfg.hd, tcfg.rope_theta)
+    x = td.embed(tcfg, tp["embed"], tokens, torch.float32)
+    jcache = [{n: jnp.asarray(c[n][:, :t_total].numpy()) for n in ("k", "v")} for c in cache]
+    jx = jnp.asarray(x.numpy())
+    h = x
+    block_cache = [{n: c[n].clone() for n in ("k", "v")} for c in cache]
+    for idx in range(ARCH["num_hidden_layers"]):
+        h = td._verify_layer(tcfg, tp["layers"][idx], h, slots, allowed, cos, sin, block_cache[idx])
+        jx, _ = jd._verify_layer(cfg, params["layers"][idx], jx, *(jnp.asarray(t.numpy()) for t in (slots, allowed, cos, sin)),
+                                 jcache[idx])
+    got = td._lm_logits(tcfg, tp, rms_norm(h, tp["final_norm"], eps))
+    want = np.asarray(jd._lm_logits(cfg, params, jl.rms_norm(jx, params["final_norm"], cfg.rms_norm_eps)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
+    step_cache = [{n: c[n][:, :t_total].clone() for n in ("k", "v")} for c in cache]
+    valid = kv_valid.clone()
+    for j in range(q):
+        valid[:, s + j] = True
+        cj, sj = rope_tables((lengths + j)[:, None], tcfg.hd, tcfg.rope_theta)
+        hj = td.embed(tcfg, tp["embed"], tokens[:, j : j + 1], torch.float32)
+        for idx in range(ARCH["num_hidden_layers"]):
+            hj = td._decode_layer(tcfg, tp["layers"][idx], hj, s + j, valid, cj, sj, step_cache[idx])
+        step = td._lm_logits(tcfg, tp, rms_norm(hj[:, 0], tp["final_norm"], eps))
+        np.testing.assert_allclose(got[:, j].numpy(), step.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft_len", [7, 3])
+def test_spec_tokens_equal_greedy_bit_for_bit_on_card(draft_len):
+    """On the card in bf16, with a fused int4 tree quantized by the port
+    (K2 sums every output in an order that does not depend on the row
+    count), speculative decoding gives plain greedy's tokens bit for bit on
+    every active row of a B=4 batch with one inactive row, as the smoke's
+    batched dispatch runs it. No JAX array is made: JAX may hold the card."""
+    from easyrag_tpu_torch.models.quant import fuse_decode_tree, quantize_linear_int4, quantize_linear_int8
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(draft_len)
+    d, inter, hd, nh, nkv = (ARCH[k] for k in ("hidden_size", "intermediate_size", "head_dim", "num_attention_heads",
+                                                "num_key_value_heads"))
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16) * 0.05
+
+    ones = torch.ones(d, device=dev, dtype=torch.bfloat16)
+    layers = [{
+        "input_norm": ones, "post_norm": ones,
+        "attn": {**{n: {**quantize_linear_int4(rnd(w, d)), "b": rnd(w)} for n, w in (("q", nh * hd), ("k", nkv * hd),
+                                                                                     ("v", nkv * hd))},
+                 "o": quantize_linear_int4(rnd(d, nh * hd))},
+        "mlp": {"gate": quantize_linear_int4(rnd(inter, d)), "up": quantize_linear_int4(rnd(inter, d)),
+                "down": quantize_linear_int4(rnd(d, inter))},
+    } for _ in range(ARCH["num_hidden_layers"])]
+    tp = fuse_decode_tree({"embed": quantize_linear_int8(rnd(ARCH["vocab_size"], d)), "layers": layers,
+                           "final_norm": ones, "lm_head": quantize_linear_int4(rnd(ARCH["vocab_size"], d))})
+    assert "qkv" in tp["layers"][0]["attn"]
+    rows, masks = _batch()
+    rows = np.concatenate([rows, np.full((1, BUCKET), 4, np.int32)])
+    masks = np.concatenate([masks, np.ones((1, BUCKET), np.int32)])
+    args = (DecoderConfig(**ARCH), tp, torch.from_numpy(rows).to(dev), torch.from_numpy(masks).to(dev),
+            torch.tensor([ARCH["vocab_size"] - 1], dtype=torch.int32, device=dev), 48)
+    active = torch.tensor([True, True, True, False], device=dev)
+    plain = td.generate_greedy(*args, active=active).cpu()
+    spec = td.generate_greedy_spec(*args, draft_len=draft_len, active=active).cpu()
+    assert torch.equal(spec[:3], plain[:3])
+
+
 @pytest.fixture(scope="module")
 def tiny_causal_checkpoint(tmp_path_factory):
     """Tiny Qwen2 causal checkpoint + word tokenizer with a chat template

@@ -8,14 +8,17 @@ segment ids, left padding as ``easyrag_tpu/models/decode.py::_prefill_layer``
 gives it and right padding as ``easyrag_tpu/models/layers.py:351`` gives it
 for the gte-Qwen2 embedder (where the port passes ``kv_start = 0, kv_end =
 length``). f32, real rows within atol 2e-5 (f32 sums in another order); every
-output, pad rows included, must be finite.
+output, pad rows included, must be finite. Head_dim 128, and head_dim 64 with
+grouped KV heads at the block sizes of JAX's head_dim-64 fallback
+(``easyrag_tpu/models/layers.py:333-340``).
 
 CUDA (marked ``cuda``, skipped without a card): the hand-written kernel
-against the plain version in bf16 at S=1024, left and right padded. Each real
-row of one head (128 values) must agree within 1.6e-2 of the row's largest
-``|plain|``: the kernel rounds the unnormalised probabilities to bf16 and
-divides at the end, the plain version rounds the normalised ones (the bound
-of the K1 tests).
+against the plain version in bf16 at S=1024, left and right padded, at
+head_dim 128, and at head_dim 64 (GQA) and 256 with ragged rows. Each real
+row of one head must agree within 1.6e-2 of the row's largest ``|plain|``:
+the kernel rounds the unnormalised probabilities to bf16 and divides at the
+end, the plain version rounds the normalised ones (the bound of the K1
+tests). Any other head dim raises without a launch.
 """
 
 import numpy as np
@@ -40,19 +43,28 @@ def _inputs(B, S, nh, nkv, seed, hd=128):
 
 
 def _stock(q, k, v, mask, nh, nkv, scale, hd=128):
-    """The JAX package's call (decode.py:109-141), in interpret mode."""
+    """The JAX package's call (decode.py:109-141, layers.py:321-361), in
+    interpret mode; at head_dim 64 with the block sizes of JAX's fallback
+    (q block 384 or the largest of 512/256/128 dividing S, k block S)."""
     from jax.experimental.pallas import tpu as pltpu
-    from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, flash_attention
+    from jax.experimental.pallas.ops.tpu.flash_attention import BlockSizes, SegmentIds, flash_attention
 
     B, S, _ = q.shape
     qh = jnp.asarray(q).reshape(B, S, nh, hd)
     kh = jnp.repeat(jnp.asarray(k).reshape(B, S, nkv, hd), nh // nkv, axis=2)
     vh = jnp.repeat(jnp.asarray(v).reshape(B, S, nkv, hd), nh // nkv, axis=2)
     seg = jnp.asarray(mask, jnp.int32)
+    blocks = None
+    if hd % 128:
+        bq = 384 if S % 384 == 0 else max(b for b in (512, 256, 128) if S % b == 0)
+        blocks = BlockSizes(
+            block_q=bq, block_k_major=S, block_k=S, block_b=1, block_q_major_dkv=bq, block_k_major_dkv=S,
+            block_k_dkv=S, block_q_dkv=bq, block_k_major_dq=S, block_k_dq=S, block_q_dq=bq,
+        )
     with pltpu.force_tpu_interpret_mode():
         out = flash_attention(
             qh.transpose(0, 2, 1, 3), kh.transpose(0, 2, 1, 3), vh.transpose(0, 2, 1, 3),
-            segment_ids=SegmentIds(seg, seg), causal=True, sm_scale=scale,
+            segment_ids=SegmentIds(seg, seg), causal=True, sm_scale=scale, block_sizes=blocks,
         )
     return np.asarray(out.transpose(0, 2, 1, 3).reshape(B, S, nh * hd))
 
@@ -93,6 +105,30 @@ def test_plain_matches_stock_kernel_right_padding(nh, nkv):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_plain_matches_stock_kernel_head_dim_64_gqa(side):
+    """Head_dim 64 with 4 query heads on 1 KV head: JAX's fallback branch of
+    the stock kernel, which the port's K3 kernel now takes on the card."""
+    B, S, nh, nkv, hd = 2, 256, 4, 1, 64
+    q, k, v = _inputs(B, S, nh, nkv, seed=20 + len(side), hd=hd)
+    lengths = np.array([S, 90])
+    pos = np.arange(S)[None, :]
+    if side == "left":
+        kv_s, kv_e = S - lengths, np.full(B, S)
+    else:
+        kv_s, kv_e = np.zeros(B, np.int64), lengths
+    mask = ((pos >= kv_s[:, None]) & (pos < kv_e[:, None])).astype(np.int32)
+    scale = hd ** -0.5
+    ref = _stock(q, k, v, mask, nh, nkv, scale, hd=hd)
+    got = k3.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy(kv_s.astype(np.int32)), torch.from_numpy(kv_e.astype(np.int32)), scale, nkv,
+    ).numpy()
+    real = mask.astype(bool)
+    assert np.abs(got[real] - ref[real]).max() <= 2e-5
+    assert np.isfinite(got).all()
+
+
 def test_plain_rows_without_keys_stay_finite():
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 64, 4, 2, seed=3))
     got = k3.flash_attention(q, k, v, torch.tensor([10, 0], dtype=torch.int32),
@@ -122,11 +158,10 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("hd", [96, 384])
 def test_kernel_raises_at_other_head_dims(cuda, hd):
-    """The prefill hands every head_dim that is a multiple of 128 to this
-    wrapper; on the card a head dim the kernel does not take raises, and
-    never runs the plain version."""
+    """The kernel takes head_dim 64, 128 and 256; on the card any other head
+    dim raises, and never runs the plain version."""
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(1, 128, 2, 1, seed=5, hd=hd))
     r = torch.zeros(1, dtype=torch.int32, device=cuda)
     before = k3.launches
@@ -156,3 +191,35 @@ def test_kernel_matches_plain_on_card(cuda, lengths, side):
     real = (pos >= kv_s[:, None]) & (pos < kv_e[:, None])
     g, r = got[real].float().reshape(-1, 128), ref[real].float().reshape(-1, 128)
     assert ((g - r).abs() <= ROW_RTOL * r.abs().amax(dim=1, keepdim=True)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("hd,nh,nkv,S,lengths", [
+    (64, 28, 4, 1024, [1024, 700, 41, 0]),  # head_dim-64 GQA, 7 query heads a KV head
+    (64, 4, 4, 200, [200, 130, 1, 65]),  # ragged last q and k tiles
+    (256, 8, 4, 1024, [1024, 500, 41, 0]),
+    (256, 4, 1, 136, [136, 93, 64, 8]),
+])
+def test_kernel_matches_plain_at_head_dims_64_and_256(cuda, hd, nh, nkv, S, lengths, side):
+    B = len(lengths)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(B, S, nh, nkv, seed=S + hd, hd=hd))
+    n = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if side == "left":
+        kv_s, kv_e = S - n, torch.full((B,), S, dtype=torch.int32, device=cuda)
+    else:
+        kv_s, kv_e = torch.zeros(B, dtype=torch.int32, device=cuda), n
+    before = k3.launches
+    got = k3.flash_attention(q, k, v, kv_s, kv_e, hd ** -0.5, nkv)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    ref = k3.flash_attention_plain(q, k, v, kv_s, kv_e, hd ** -0.5, nkv)
+    assert torch.isfinite(got.float()).all()  # pad rows included
+    pos = torch.arange(S, device=cuda)[None, :]
+    real = (pos >= kv_s[:, None]) & (pos < kv_e[:, None])
+    g, r = got[real].float().reshape(-1, hd), ref[real].float().reshape(-1, hd)
+    assert ((g - r).abs() <= ROW_RTOL * r.abs().amax(dim=1, keepdim=True)).all()
+    # a row with no key at all writes zeros
+    for b, length in enumerate(lengths):
+        if length == 0:
+            assert (got[b] == 0).all()

@@ -10,7 +10,8 @@ positions filled with large values) only real rows are compared, and pad
 rows must be finite.
 
 CUDA (marked ``cuda``, skipped without a card): the hand-written kernel
-against the plain version in bf16, at head_dim 256 and 128. Each real row of
+against the plain version in bf16, at head_dim 256 and 128, S=1152 and 640
+(the Gemma2 reranker's before and after its compression) and ragged S. Each real row of
 one head must agree within 1.6e-2 of the row's largest ``|plain|``: the
 kernel rounds the unnormalised probabilities to bf16 and divides at the end,
 the plain version rounds the normalised ones (the bound of the K1 and K3
@@ -144,6 +145,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         (3, 136, 16, 8, 256, [136, 93, 8], 50.0),
         (2, 640, 16, 8, 256, [640, 17], 0.0),
         (2, 264, 8, 2, 128, [264, 100], 20.0),
+        (4, 640, 16, 8, 256, [640, 600, 311, 40], 50.0),  # the compressed layers' S
+        (2, 1152, 8, 2, 128, [1152, 700], 50.0),
+        (2, 640, 8, 4, 128, [640, 77], 0.0),
     ],
 )
 def test_kernel_matches_plain_on_card(cuda, B, S, nh, nkv, hd, lengths, cap):

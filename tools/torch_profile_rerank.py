@@ -45,7 +45,7 @@ GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
 
 def kind(name: str) -> str:
     low = name.lower()
-    if "flash_softcap" in low:
+    if "attn_sm90" in low:  # K4's kernel body (shared with K3, which no reranker runs)
         return "K4"
     if "flash64" in low or "rope_k" in low:
         return "K1"
