@@ -17,16 +17,21 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    (``bm25_scores``) at P=32768, N=20000 for B=1 and B=4, and at P 0, 1000,
    32768 and 262144, B 1 and 3, N 20000 and 1 with ids out of range,
    all-sentinel and skewed rows, each the same bits twice and equal bit for
-   bit to the plain version's posting-order sums on the CPU; K2 (``int4_matvec``) on the five Qwen2-7B int4 shapes at R=1, 4,
-   8 and 32 (rows of the R=32 launch must equal the smaller launches bit for
-   bit; times from CUDA graphs of at least 50 launches that cycle through
-   copies of the weights four times the size of the L2, as a decode step
-   reads every layer's weights from HBM),
+   bit to the plain version's posting-order sums on the CPU; K2
+   (``int4_matvec``) on the five Qwen2-7B int4 shapes at R=1, 4, 8, 32 and 64
+   (rows of the R=32 launch must equal the smaller launches bit for bit, and
+   the R=64 launch's the R=32 launch's; times, GB/s and share of the bound
+   from CUDA graphs of at least 50 launches that cycle through copies of the
+   weights four times the size of the L2, as a decode step reads every
+   layer's weights from HBM; ``_weight_int4pack_mm`` timed the same way on
+   the same weights, repacked once, and held to the plain version, or the
+   error the card's torch gave),
    K3 (``flash_attention``) at B=1, S=7680 and at B=4, S=2048 left-padded,
-   28 query heads of 128 on 4 KV heads, then at head_dim 64 (28 on 4) and
-   256 (16 on 8), both padding sides, at S=2048 and S=200 with ragged and
-   empty rows (an empty row must be zero); max error, median times from CUDA
-   events, and SDPA's time on the same inputs;
+   28 query heads of 128 on 4 KV heads, then at head_dim 64 (28 on 4), 192
+   (16 on 4), 256 (16 on 8) and 320 (8 on 2), both padding sides, at S=2048
+   and (64, 256, 320) S=200 with ragged and empty rows (an empty row must be
+   zero); max error, median times from CUDA events, and SDPA's time on the
+   same inputs;
 3. the port's ``EasyRAGPipeline.run`` on ``configs/easyrag.yaml`` over a
    seeded synthetic corpus of 20,000 chunks, with the full-width
    bge-reranker-v2-minicpm-layerwise (hidden 2304, 36x64 heads, 40 layers,
@@ -91,8 +96,9 @@ Every kernel's entry in the JSON line carries its bound at the timed shape
 bytes, each input read once and each output written once, over 3.35 TB/s)
 and, where one PyTorch call computes the same function, that call's time
 (``scaled_dot_product_attention`` for K1 and K3, ``index_add_`` for K5,
-``flex_attention`` compiled with the softcap as its ``score_mod`` for K4;
-none unpacks int4 for K2).
+``flex_attention`` compiled with the softcap as its ``score_mod`` for K4,
+``torch.ops.aten._weight_int4pack_mm`` for K2, on weights repacked into its
+layout with the per-channel scale as every group's bf16 scale).
 
 Prints its total seconds, one JSON line of kernel results (K1's and K5's
 times at the pipeline's shapes, K2's gateup's at R=1, K3's at both call
@@ -152,6 +158,9 @@ QWEN2_7B = dict(  # Qwen2-7B-Instruct's config.json
 QWEN2_EOS = [151_643, 151_645]  # <|endoftext|>, <|im_end|> (generation_config.json)
 # K2 times cycle through copies of the weights totalling 4x the H100's 50 MB L2
 L2_FLUSH_BYTES = 200 << 20
+K2_ROWS = (1, 4, 8, 32, 64)
+# _weight_int4pack_mm, K2's yardstick: scale groups of 128 columns, 8 inner k tiles
+INT4PACK_GROUP, INT4PACK_INNER_K_TILES = 128, 8
 K2_SHAPES = {  # [O, I/2] of the int4 matvecs of a Qwen2-7B decode step, fused as the generator runs them
     "qkv": (4608, 1792), "o": (3584, 1792), "gateup": (37_888, 1792), "down": (3584, 9472), "lm_head": (152_064, 1792),
 }
@@ -538,40 +547,102 @@ def cold_weights(w, scale):
     return itertools.cycle(copies), len(copies)
 
 
-def phase_new_kernels(torch, np, k2, k3):
-    """K2 and K3 against their plain versions at the generator's shapes;
-    K2's bound at gateup R=1 and K3's bound and SDPA time at B=1, S=7680."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    errs, times, extra = {"K2": 0.0, "K3": 0.0}, {}, {}
+def int4pack_library(torch, k2, w, scale):
+    """``torch.ops.aten._weight_int4pack_mm``'s operands for ``(w, scale)``
+    (``k2.int4pack_operands``, group 128, 8 inner k tiles), made once outside
+    any timed loop: ``(packed, scales_and_zeros)``, or the error text where
+    the card's torch refuses them. A yardstick only: the port never calls it."""
+    try:
+        w_u8, sz = k2.int4pack_operands(w, scale, INT4PACK_GROUP)
+        return torch.ops.aten._convert_weight_to_int4pack(w_u8, INT4PACK_INNER_K_TILES), sz
+    except Exception as e:  # the yardstick may not exist for this card or shape: report it, do not fail
+        return str(e).strip().splitlines()[0][:200]
+
+
+def phase_k2(torch, k2, gen, errs, times, extra):
+    """K2 against its plain version at the five shapes and R = 1, 4, 8, 32
+    and 64: each within ``K2_RTOL`` / ``K2_ROW_ATOL``, the R=64 launch's
+    first rows equal to the smaller launches bit for bit; times, GB/s and
+    share of the bound, and ``_weight_int4pack_mm``'s time on the same
+    L2-cold weight copies (or the error it gave)."""
     for name, (n_out, half) in K2_SHAPES.items():
-        x32, w, scale = k2_case(torch, gen, n_out, half, 32)
+        x64, w, scale = k2_case(torch, gen, n_out, half, max(K2_ROWS))
         cold, n_copies = cold_weights(w, scale)
-        by_rows = {}
-        for rows in (1, 4, 8, 32):  # decode at B=1 and B=4, verify blocks (spec 7) at B=1 and B=4
-            x = x32[:rows].contiguous()
+        copies = [next(cold) for _ in range(n_copies)]
+        packs = [int4pack_library(torch, k2, *c) for c in copies]
+        refused = next((p for p in packs if isinstance(p, str)), None)
+        lib_cold = itertools.cycle(packs) if refused is None else None
+        by_rows, w_deq = {}, None
+        for rows in K2_ROWS:  # decode at B=1 and B=4, verify blocks (spec 7) at B=1 and B=4, the gate's top
+            x = x64[:rows].contiguous()
             got, err, ratio = k2_compare(torch, k2, x, w, scale)
             by_rows[rows] = got
             errs["K2"] = max(errs["K2"], err)
             ms = graph_ms(torch, lambda: k2.int4_matvec(x, *next(cold)), n=max(50, n_copies))
             plain = graph_ms(torch, lambda: k2.int4_matvec_plain(x, *next(cold)), n=10)
+            b2 = bound(2 * rows * n_out * 2 * half, w.nbytes + scale.nbytes + x.nbytes + rows * n_out * 2)
+            lib, lib_text = None, f"_weight_int4pack_mm refused: {refused}"
+            if refused is None:
+                def lib_call():
+                    packed, sz = next(lib_cold)
+                    return torch.ops.aten._weight_int4pack_mm(x, packed, INT4PACK_GROUP, sz)
+
+                try:
+                    ylib = torch.ops.aten._weight_int4pack_mm(x, packs[0][0], INT4PACK_GROUP, packs[0][1]).float()
+                    lib = graph_ms(torch, lib_call, n=max(50, n_copies))
+                except Exception as e:  # refused at this R: report it, do not fail
+                    lib_text = f"_weight_int4pack_mm refused: {str(e).strip().splitlines()[0][:200]}"
+                else:
+                    ref = k2.int4_matvec_plain(x, w, scale).float()
+                    # K2's bound widened by the bf16 rounding of the scale (2^-8 of each output)
+                    wide = (K2_RTOL + 2.0 ** -8) * ref.abs() + K2_ROW_ATOL * ref.abs().amax(dim=1, keepdim=True)
+                    lib_ratio = float(((ylib - ref).abs() / wide).max())
+                    # the library's own math: each weight dequantized to bf16 (s * bf16(scale), rounded)
+                    if w_deq is None:
+                        w_deq = (k2.int4pack_dequantize(*k2.int4pack_operands(w, scale, INT4PACK_GROUP))
+                                 .to(torch.bfloat16))
+                    own = (x.float() @ w_deq.float().t()).to(torch.bfloat16).float()
+                    own_bound = K2_RTOL * own.abs() + K2_ROW_ATOL * own.abs().amax(dim=1, keepdim=True)
+                    own_ratio = float(((ylib - own).abs() / own_bound).max())
+                    rel_l2 = float((ylib - ref).norm() / ref.norm())
+                    lib_text = (f"_weight_int4pack_mm {lib:.4f} ms ({lib_ratio:.3f} of the widened bound: "
+                                f"{'agrees' if lib_ratio <= 1.0 else 'disagrees'}; relative L2 {rel_l2:.2e}; "
+                                f"{own_ratio:.3f} of K2's bound around its own bf16-rounded weights)")
+                    del ref, own
             times[(name, rows)] = (ms, plain)
-            if (name, rows) == ("gateup", 1):  # the reported shape; no one PyTorch call unpacks int4
-                extra["K2"] = (*bound(2 * rows * n_out * 2 * half, w.nbytes + scale.nbytes + x.nbytes + rows * n_out * 2),
-                               None)
+            if (name, rows) == ("gateup", 1):  # the reported shape
+                extra["K2"] = (*b2, lib)
             gbs = n_out * half / ms / 1e6
             say(f"K2 {name} [{n_out}, {half}] R={rows}: max_abs_err {err:.3e} ({ratio:.3f} of the bound); "
-                f"kernel {ms:.4f} ms ({gbs:.0f} GB/s of packed weights), plain {plain:.4f} ms")
+                f"kernel {ms:.4f} ms ({gbs:.0f} GB/s of packed weights, {b2[0] / ms:.1%} of the bound "
+                f"{b2[0]:.4f} ms), plain {plain:.4f} ms, {lib_text}")
         same = all(torch.equal(by_rows[32][:r], by_rows[r]) for r in (1, 4, 8))
         check(same, f"K2 {name}: rows of the R=32 launch differ from the R=1, 4 and 8 launches")
-        say(f"K2 {name}: the first rows of the R=32 launch equal the R=1, 4 and 8 launches bit for bit")
+        check(torch.equal(by_rows[64][:32], by_rows[32]), f"K2 {name}: rows of the R=64 launch differ from the R=32 launch")
+        say(f"K2 {name}: the first rows of the R=32 launch equal the R=1, 4 and 8 launches bit for bit, "
+            f"and the R=64 launch's the R=32 launch's")
+        del copies, packs, lib_cold, cold, x64, w, scale, w_deq
+        torch.cuda.empty_cache()
+
+
+def phase_new_kernels(torch, np, k2, k3):
+    """K2 and K3 against their plain versions at the generator's shapes;
+    K2's bound and library time at gateup R=1 and K3's bound and SDPA time
+    at B=1, S=7680."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    errs, times, extra = {"K2": 0.0, "K3": 0.0}, {}, {}
+    phase_k2(torch, k2, gen, errs, times, extra)
     # the prefill's shape and a left-padded batch at head_dim 128 (the main
-    # path), then head_dim 64 with grouped KV heads (28 on 4) and head_dim 256
-    # (16 on 8), both padding sides, ragged rows and an empty one
+    # path), then head_dim 64 with grouped KV heads (28 on 4), 192 (16 on 4),
+    # 256 (16 on 8) and 320 (8 on 2: V's columns in two groups), both padding
+    # sides, ragged rows and an empty one
     ragged = [2048, 1500, 700, 40]
     cases = [(1, 7680, [7680], "left", 28, 4, 128), (4, 2048, ragged, "left", 28, 4, 128)]
     for side in ("left", "right"):
-        cases += [(4, 2048, ragged, side, 28, 4, 64), (4, 2048, ragged, side, 16, 8, 256),
-                  (4, 200, [200, 130, 1, 0], side, 28, 4, 64), (4, 200, [200, 130, 1, 0], side, 16, 8, 256)]
+        cases += [(4, 2048, ragged, side, 28, 4, 64), (4, 2048, ragged, side, 16, 4, 192),
+                  (4, 2048, ragged, side, 16, 8, 256), (4, 2048, ragged, side, 8, 2, 320),
+                  (4, 200, [200, 130, 1, 0], side, 28, 4, 64), (4, 200, [200, 130, 1, 0], side, 16, 8, 256),
+                  (4, 200, [200, 130, 1, 0], side, 8, 2, 320)]
     for B, S, lengths, side, nh, nkv, hd in cases:
         args = k3_case(torch, gen, B, S, lengths, side, nh, nkv, hd)
         err, row_rel = k3_compare(torch, k3, args)

@@ -1,21 +1,30 @@
 // Causal grouped-query attention on Hopper (sm_90a): wgmma + TMA, shared by
-// K3 (csrc/flash_attention.cu: per-row key ranges, head_dim 64/128/256) and
-// K4 (csrc/flash_softcap.cu: the Gemma2 logit softcap, head_dim 128/256, no
-// key range). Each .cu keeps its own extern "C" entry point and launch count.
+// K3 (csrc/flash_attention.cu: per-row key ranges, every head_dim that is a
+// multiple of 64 up to 512) and K4 (csrc/flash_softcap.cu: the Gemma2 logit
+// softcap, head_dim 128/256, no key range). Each .cu keeps its own extern "C"
+// entry point and launch count.
 //
 // Layout: q and out are [B, S, NH*HD] bf16, k and v [B, S, NKV*HD] bf16 (the
 // projections' own layout); query head h reads KV head h / (NH/NKV) in place.
 // Keys outside [kv_start[b], kv_end[b]) (K4: [0, S)) and above the diagonal
 // get the logit finfo(f32).min, never -inf.
 //
-// One block per (query head, batch row, 128-row q tile), heads fastest, so
-// the NH/NKV heads of one KV group run side by side and share their K/V tiles
-// in L2; the q tiles with the longest causal prefixes launch first (the q
-// tile fastest instead measured within 3% either way on the H100). Two
-// warpgroups of 128 threads and no producer warp: a ninth warp would put
-// three warps on one of the SM's four register-file quarters and cap every
-// thread at 168 registers, where the HD-256 O accumulator alone is 128 (ptxas
-// then spills and serialises the wgmmas; setmaxnreg did not lift the cap).
+// One block per (query head, V column group, batch row, q tile of 64 NCW
+// rows), heads fastest, so the NH/NKV heads of one KV group run side by side
+// and share their K/V tiles in L2; the q tiles with the longest causal
+// prefixes launch first (the q tile fastest instead measured within 3% either
+// way on the H100). NCW warpgroups of 128 threads (two up to HD 256) and no
+// producer warp: a ninth warp would put three warps on one of the SM's four
+// register-file quarters and cap every thread at 168 registers, where the
+// HD-256 O accumulator alone is 128 (ptxas then spills and serialises the
+// wgmmas; setmaxnreg did not lift the cap).
+//
+// Past HD 256 (Shape<HD>): the O accumulator of all of V's columns would not
+// fit the 255 registers a thread may hold, so V's columns are split into NG
+// groups of at most 256 (4 panels), one block per group, each recomputing
+// QK^T over the whole head dim; and Q, K and V tiles of 64 x HD no longer fit
+// 227 KB at two warpgroups and two stages, so Shape picks the first of (two
+// warpgroups, 3 stages), (2, 2), (1, 3), (1, 2), (2, 1), (1, 1) that fits.
 //
 //   * a ring of NSTAGE K/V tile pairs (64 keys x HD) is kept full by TMA
 //     loads: 3-D tensor maps over [B, S, NKV*HD], boxes of 64 keys x 64 dims
@@ -58,22 +67,36 @@
 
 namespace attn_sm90 {
 
-constexpr int BQ = 128;                 // q rows per block
 constexpr int BK = 64;                  // keys per tile
-constexpr int NCW = 2;                  // warpgroups, 64 q rows each
-constexpr int NT = NCW * 128;
 constexpr int PANEL = 64;               // dims per 128-byte swizzle row
 constexpr int PANEL_BYTES = BK * PANEL * 2;  // 8 KB: one 64 x 64 bf16 panel
+constexpr int MAX_SMEM = 232448;        // dynamic shared memory a block may use
 constexpr float MASK_VALUE = -3.4028234663852886e38f;  // finfo(f32).min
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Shape {
-  static_assert(HD == 64 || HD == 128 || HD == 256, "head_dim 64, 128 or 256");
-  static constexpr int NP = HD / PANEL;                    // panels per row
-  static constexpr int TILE_BYTES = NP * PANEL_BYTES;      // a 64-row tile of HD
-  static constexpr int NSTAGE = HD == 256 ? 2 : 3;         // K/V ring depth
-  static constexpr int SMEM_BYTES = 1024 + (NCW + 2 * NSTAGE) * TILE_BYTES + NSTAGE * 8 + NSTAGE * 4;
+  static_assert(HD % 64 == 0 && HD >= 64 && HD <= 512, "head_dim a multiple of 64 up to 512");
+  static constexpr int NP = HD / PANEL;                    // panels per row of Q and K
+  static constexpr int NG = NP <= 4 ? 1 : (NP + 3) / 4;    // V column groups, one block each
+  static constexpr int NPV = (NP + NG - 1) / NG;           // V panels per group (at most 4)
+  static constexpr int TILE_BYTES = NP * PANEL_BYTES;      // a 64-row tile of HD: Q or K
+  static constexpr int VTILE_BYTES = NPV * PANEL_BYTES;    // a 64-row tile of one V group
+  static constexpr int bytes(int ncw, int nstage) {
+    return 1024 + ncw * TILE_BYTES + nstage * (TILE_BYTES + VTILE_BYTES) + nstage * 12;
+  }
+  static constexpr int pick() {  // 10 * warpgroups + stages: the first that fits
+    constexpr int opts[6] = {23, 22, 13, 12, 21, 11};
+    for (int i = 0; i < 6; ++i)
+      if (bytes(opts[i] / 10, opts[i] % 10) <= MAX_SMEM) return opts[i];
+    return 0;
+  }
+  static constexpr int NCW = pick() / 10;                  // warpgroups, 64 q rows each
+  static constexpr int NSTAGE = pick() % 10;               // K/V ring depth
+  static constexpr int NT = NCW * 128;
+  static constexpr int BQ = 64 * NCW;                      // q rows per block
+  static constexpr int SMEM_BYTES = bytes(NCW, NSTAGE);
+  static_assert(NCW > 0, "no ring fits shared memory");
 };
 
 // element offset of (row r, 16-byte chunk c) in a 128-byte-swizzled 64 x 64 panel
@@ -156,26 +179,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // kv_start/kv_end null: the whole range [0, S). softcap only with SOFTCAP.
 template <int HD, bool SOFTCAP>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(Shape<HD>::NT, 1)
 attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                  const __nv_bfloat16* __restrict__ q, const int32_t* __restrict__ kv_start,
                  const int32_t* __restrict__ kv_end, __nv_bfloat16* __restrict__ out, int S, int NH, int NKV,
                  float sm_scale, float softcap) {
   using Sh = Shape<HD>;
   constexpr int NP = Sh::NP;
+  constexpr int NG = Sh::NG;
+  constexpr int NPV = Sh::NPV;
+  constexpr int NCW = Sh::NCW;
+  constexpr int BQ = Sh::BQ;
   constexpr int NSTAGE = Sh::NSTAGE;
   constexpr int TILE = Sh::TILE_BYTES;
+  constexpr int VTILE = Sh::VTILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
   uint8_t* sq = base;                               // NCW tiles of 64 q rows
   uint8_t* sk = base + NCW * TILE;                  // NSTAGE K tiles
-  uint8_t* sv = base + (NCW + NSTAGE) * TILE;       // NSTAGE V tiles
-  uint64_t* full = (uint64_t*)(base + (NCW + 2 * NSTAGE) * TILE);
+  uint8_t* sv = base + (NCW + NSTAGE) * TILE;       // NSTAGE V tiles (this block's column group)
+  uint64_t* full = (uint64_t*)(sv + NSTAGE * VTILE);
   int* finished = (int*)(full + NSTAGE);  // per stage: warpgroups done with it, over all its uses
 
   const int nqt = (S + BQ - 1) / BQ;
   const int qt = nqt - 1 - (int)blockIdx.z;
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / NG;
+  const int vg = blockIdx.x % NG;                   // V column group: panels [vg * NPV, vg * NPV + npv)
+  const int npv = NG == 1 ? NPV : min(NPV, NP - vg * NPV);
   const int b = blockIdx.y;
   const int kvh = h / (NH / NKV);
   const int F = NH * HD;
@@ -183,17 +213,18 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   const int start = kv_start != nullptr ? max(kv_start[b], 0) : 0;
   const int end = kv_end != nullptr ? min(kv_end[b], S) : S;
   const int kt_lo = start / BK;
-  const int kt_hi = end > start ? min(2 * qt + 1, (end - 1) / BK) : -1;
+  const int kt_hi = end > start ? min((q0 + BQ - 1) / BK, (end - 1) / BK) : -1;
 
   // key tile kt_lo + i into stage i % NSTAGE
   auto load = [&](int i) {
     const int s = i % NSTAGE;
     const int kt = kt_lo + i;
-    mbar_expect_tx(&full[s], 2 * TILE);
+    mbar_expect_tx(&full[s], TILE + npv * PANEL_BYTES);
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       tma_load(sk + s * TILE + p * PANEL_BYTES, &kmap, &full[s], kvh * HD + p * PANEL, kt * BK, b);
-      tma_load(sv + s * TILE + p * PANEL_BYTES, &vmap, &full[s], kvh * HD + p * PANEL, kt * BK, b);
+      if (p < npv)
+        tma_load(sv + s * VTILE + p * PANEL_BYTES, &vmap, &full[s], kvh * HD + (vg * NPV + p) * PANEL, kt * BK, b);
     }
   };
   if (threadIdx.x == 0) {
@@ -235,9 +266,9 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   const int row0 = wrow + g;
   const int row1 = row0 + 8;
   const uint64_t dq = sw128_desc(my_q);
-  float o[NP][32];
+  float o[NPV][32];
 #pragma unroll
-  for (int p = 0; p < NP; ++p)
+  for (int p = 0; p < NPV; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
   float m0 = MASK_VALUE, m1 = MASK_VALUE, l0 = 0.0f, l1 = 0.0f;
@@ -302,7 +333,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
       l0 = l0 * a0 + ps0;
       l1 = l1 * a1 + ps1;
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+      for (int p = 0; p < NPV; ++p)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           o[p][4 * nt] *= a0;
@@ -310,20 +341,21 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
           o[p][4 * nt + 2] *= a1;
           o[p][4 * nt + 3] *= a1;
         }
-      const uint64_t dv = sw128_desc(sv + s * TILE);
+      const uint64_t dv = sw128_desc(sv + s * VTILE);
       wg_fence();
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+      for (int p = 0; p < NPV; ++p)
+        if (NG == 1 || p < npv)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wgmma_rs(o[p], pa[j], dv + (uint64_t)((p * PANEL_BYTES + 2048 * j) >> 4));
+          for (int j = 0; j < 4; ++j)
+            wgmma_rs(o[p], pa[j], dv + (uint64_t)((p * PANEL_BYTES + 2048 * j) >> 4));
       wg_commit();
       wg_wait0();
     }
-    // every warp of the warpgroup is done reading stage s; the second
+    // every warp of the warpgroup is done reading stage s; the last
     // warpgroup to get here refills it
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    if (tid == 0 && (atomicAdd(&finished[s], 1) & 1) && kt + NSTAGE <= kt_hi) load(i + NSTAGE);
+    if (tid == 0 && atomicAdd(&finished[s], 1) % NCW == NCW - 1 && kt + NSTAGE <= kt_hi) load(i + NSTAGE);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -337,7 +369,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   const int r = warp * 16 + g;
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
+  for (int p = 0; p < NPV; ++p) {
     __nv_bfloat16* panel = (__nv_bfloat16*)(my_q + p * PANEL_BYTES);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -347,12 +379,12 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     }
   }
   __syncwarp();
-  for (int u = lane; u < 16 * (HD / 8); u += 32) {
-    const int rr = warp * 16 + u / (HD / 8);
-    const int c = u % (HD / 8);
+  for (int u = lane; u < 16 * (npv * 8); u += 32) {
+    const int rr = warp * 16 + u / (npv * 8);
+    const int c = u % (npv * 8);  // 16-byte chunk of the group's columns
     const __nv_bfloat16* panel = (const __nv_bfloat16*)(my_q + (c >> 3) * PANEL_BYTES);
     if (r0q + rr < S)
-      *reinterpret_cast<uint4*>(out + ((size_t)b * S + r0q + rr) * F + h * HD + 8 * c) =
+      *reinterpret_cast<uint4*>(out + ((size_t)b * S + r0q + rr) * F + h * HD + vg * NPV * PANEL + 8 * c) =
           *reinterpret_cast<const uint4*>(panel + swz(rr, c & 7));
   }
 }
@@ -396,8 +428,9 @@ int launch(const void* q, const void* k, const void* v, const void* kv_start, co
   const cudaError_t err = cudaFuncSetAttribute(attention_kernel<HD, SOFTCAP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<HD>::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(NH, B, (S + BQ - 1) / BQ);
-  attention_kernel<HD, SOFTCAP><<<grid, NT, Shape<HD>::SMEM_BYTES, stream>>>(
+  using Sh = Shape<HD>;
+  dim3 grid(NH * Sh::NG, B, (S + Sh::BQ - 1) / Sh::BQ);
+  attention_kernel<HD, SOFTCAP><<<grid, Sh::NT, Sh::SMEM_BYTES, stream>>>(
       kmap, vmap, (const __nv_bfloat16*)q, (const int32_t*)kv_start, (const int32_t*)kv_end, (__nv_bfloat16*)out, S,
       NH, NKV, sm_scale, softcap);
   return (int)cudaGetLastError();

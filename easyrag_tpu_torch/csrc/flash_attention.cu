@@ -1,5 +1,6 @@
-// Causal grouped-query attention with a per-row key range, head_dim 64, 128
-// or 256, on Hopper (wgmma + TMA; the kernel body is csrc/attention_sm90.cuh).
+// Causal grouped-query attention with a per-row key range, every head_dim
+// that is a multiple of 64 up to 512, on Hopper (wgmma + TMA; the kernel body
+// is csrc/attention_sm90.cuh).
 //
 // Replaces the stock Pallas TPU flash_attention
 // (jax.experimental.pallas.ops.tpu.flash_attention, K3) at both of its
@@ -8,7 +9,8 @@
 // easyrag_tpu/models/layers.py:351 (every layer of the gte-Qwen2 embedder,
 // right padding), causal, with the padding given as segment ids (pad 0,
 // real 1). JAX sends every head dim that is a multiple of 64 to the stock
-// kernel; this one takes 64, 128 and 256 (the wrapper raises at any other).
+// kernel; this one takes them up to 512 (past 256 V's columns are split in
+// groups of at most 256, one block each; the wrapper raises past 512).
 // What differs from those calls:
 //
 //   * layout: q is [B, S, NH*HD] and k, v are [B, S, NKV*HD], the
@@ -39,20 +41,18 @@
 #include "attention_sm90.cuh"
 
 // q, out: [B, S, NH*HD] bf16; k, v: [B, S, NKV*HD] bf16, 16-byte aligned;
-// kv_start, kv_end: [B] int32; NH % NKV == 0; HD 64, 128 or 256. Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for another HD or a
-// tensor map that cannot be made).
+// kv_start, kv_end: [B] int32; NH % NKV == 0; HD a multiple of 64 up to 512.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for another
+// HD or a tensor map that cannot be made).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, const void* kv_start,
                                       const void* kv_end, void* out, int B, int S, int NH, int NKV, int HD,
                                       float sm_scale, void* stream) {
   if (B <= 0 || S <= 0 || NH <= 0) return 0;
   if (NKV <= 0 || NH % NKV) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (HD == 64)
-    return attn_sm90::launch<64, false>(q, k, v, kv_start, kv_end, out, B, S, NH, NKV, sm_scale, 0.0f, st);
-  if (HD == 128)
-    return attn_sm90::launch<128, false>(q, k, v, kv_start, kv_end, out, B, S, NH, NKV, sm_scale, 0.0f, st);
-  if (HD == 256)
-    return attn_sm90::launch<256, false>(q, k, v, kv_start, kv_end, out, B, S, NH, NKV, sm_scale, 0.0f, st);
+#define K3_HD(D) \
+  if (HD == D) return attn_sm90::launch<D, false>(q, k, v, kv_start, kv_end, out, B, S, NH, NKV, sm_scale, 0.0f, st);
+  K3_HD(64) K3_HD(128) K3_HD(192) K3_HD(256) K3_HD(320) K3_HD(384) K3_HD(448) K3_HD(512)
+#undef K3_HD
   return (int)cudaErrorInvalidValue;
 }

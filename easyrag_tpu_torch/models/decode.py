@@ -8,7 +8,7 @@ Two phases, as in the JAX package:
   ``[B, S + max_new, kv_heads, head_dim]`` cache. Attention runs through the
   K3 port (``ops/flash_attention.py``) where the JAX package runs the stock
   kernel (head_dim and S multiples of 128; the CUDA kernel takes head_dim
-  128 and 256 of those and raises at 384 and up) and through the einsum
+  up to 512 and raises past it) and through the einsum
   formulation otherwise; the int4 projections at more than 64 rows unpack
   and take one large ``torch.matmul``.
 * **decode** -- single-token steps (or, with speculation, verify blocks of
@@ -94,7 +94,7 @@ def _prefill_layer(
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
     # K3 wherever the JAX package runs the stock kernel; its einsum path elsewhere.
-    # The CUDA kernel takes head_dim 128 and 256 and raises at 384, 512, ...
+    # The CUDA kernel takes head_dim up to 512 and raises past it.
     attend = flash_attention if use_flash(hd, s) else flash_attention_plain
     out = attend(
         q.reshape(b, s, nh * hd), k.reshape(b, s, nkv * hd), v.reshape(b, s, nkv * hd).contiguous(),

@@ -253,8 +253,8 @@ def load_gemma_reranker(model_dir: str, quant: str = "", device="cuda", dtype: t
     hf = load_hf_config(model_dir)
     cfg = gemma_config_from_hf(hf)
     params = load_decoder_params(
-        model_dir, cfg.num_hidden_layers, dtype=dtype, start_layer=hf.get("start_layer", 8), gemma=True,
-        head_layer_sep=hf.get("layer_sep", 1),
+        model_dir, cfg.num_hidden_layers, dtype=dtype, device=resolve_device(device),
+        start_layer=hf.get("start_layer", 8), gemma=True, head_layer_sep=hf.get("layer_sep", 1),
     )
     tok = AutoTokenizer.from_pretrained(model_dir, trust_remote_code=True)
     tok.padding_side = "right"

@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..devices import resolve_device
 from .quant import quantize_linear_int4, quantize_linear_int8
 
 QUANTS = ("", "int8", "int4")
@@ -82,7 +83,7 @@ def load_decoder_params(
     num_layers: int,
     dtype: torch.dtype = torch.bfloat16,
     quant: str = "",
-    device="cpu",
+    device="cuda",
     start_layer: Optional[int] = None,
     gemma: bool = False,
     head_layer_sep: int = 1,
@@ -93,11 +94,13 @@ def load_decoder_params(
     an untied ``lm_head`` quantized per output channel; ``"int4"`` also
     stores the embedding table int8 (per-row scales). Norms and biases stay
     in ``dtype``; layerwise score heads are f32 ``[1, hidden]`` under
-    ``heads``, keyed by layer."""
+    ``heads``, keyed by layer. The tree lands on ``device``: the card unless
+    the caller asks for the CPU."""
     if quant in ("w8a8", "w4a8"):
         raise NotImplementedError(f"quant={quant!r}: activation quantization is ROADMAP Queue 1, item 4")
     if quant not in QUANTS:
         raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
+    device = resolve_device(device)
     layers = [{"attn": {}, "mlp": {}} for _ in range(num_layers)]
     params: Dict[str, Any] = {"layers": layers}
     heads: Dict[int, torch.Tensor] = {}
@@ -150,7 +153,6 @@ def load_qwen2_embedder(model_dir: str, dtype: torch.dtype = torch.bfloat16, qua
     card unless the caller asks for the CPU). ``quant``: "", "int8" or
     "int4" (with an int8 embedding table); "w8a8" and "w4a8" raise
     (activation quantization, ROADMAP Queue 1, item 4)."""
-    from ..devices import resolve_device
     from .qwen2 import qwen2_config_from_hf
 
     device = resolve_device(device)

@@ -289,7 +289,7 @@ def attention(
     Padding is a per-row key range. JAX's gate for the stock kernel
     (``layers.py:240-245``, ``:321``), on the inputs alone: a head dim that
     is a multiple of 64 at ``S % 128 == 0`` takes K3, whose CUDA kernel
-    takes head_dim 64, 128 and 256 and raises at any other (on the CPU its
+    takes head dims up to 512 and raises past them (on the CPU its
     plain version runs); the einsum formulation runs otherwise (the 64-token bucket of a
     short query). Query rows outside the
     key range attend to the range's keys where JAX's segment ids pair them

@@ -12,9 +12,10 @@ kv_end[b])``; left padding is ``kv_start = S - length``, right padding
 reads KV head ``h // (NH // NKV)``. Logits and softmax are f32; masked logits
 are ``finfo(f32).min``, so every output is finite, pad rows included.
 
-CUDA tensors go through ``csrc/flash_attention.cu`` (bf16, head_dim 64, 128
-or 256: the ``wgmma``/TMA body of ``csrc/attention_sm90.cuh``) or raise; CPU
-tensors go through :func:`flash_attention_plain`.
+CUDA tensors go through ``csrc/flash_attention.cu`` (bf16, every head_dim
+that is a multiple of 64 up to 512, as JAX sends any multiple of 64 to the
+stock kernel: the ``wgmma``/TMA body of ``csrc/attention_sm90.cuh``) or
+raise; CPU tensors go through :func:`flash_attention_plain`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 from .. import _build
 from .flash64 import masked_attention
 
-HEAD_DIMS = (64, 128, 256)  # the kernel's head dims
+MAX_HEAD_DIM = 512  # past this the kernel raises (ROADMAP Queue 3)
+HEAD_DIMS = tuple(range(64, MAX_HEAD_DIM + 1, 64))  # the kernel's head dims: multiples of 64 up to 512
 
 #: kernel launches made by :func:`flash_attention`
 launches = 0
@@ -94,7 +96,10 @@ def flash_attention(
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIMS}, got {hd} (other head dims: ROADMAP Queue 2, K3)")
+        raise ValueError(
+            f"flash_attention kernel takes head_dim a multiple of 64 up to {MAX_HEAD_DIM}, got {hd} "
+            "(larger head dims: ROADMAP Queue 3)"
+        )
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     if kv_start.dtype != torch.int32 or kv_end.dtype != torch.int32:

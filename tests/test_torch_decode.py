@@ -292,7 +292,7 @@ def test_causal_lm_matches_jax(tiny_causal_checkpoint, spec):
 @pytest.mark.parametrize("quant", ["", "int8", "int4"])
 def test_loader_matches_jax(tiny_causal_checkpoint, quant):
     ref = jh.load_decoder_params(tiny_causal_checkpoint, 2, dtype=jnp.float32, quant=quant)
-    got = th.load_decoder_params(tiny_causal_checkpoint, 2, dtype=torch.float32, quant=quant)
+    got = th.load_decoder_params(tiny_causal_checkpoint, 2, dtype=torch.float32, quant=quant, device="cpu")
     ref_np = jax.tree.map(np.asarray, ref)
     assert sorted(got) == sorted(ref_np) == ["embed", "final_norm", "layers", "lm_head"]
 
@@ -314,4 +314,4 @@ def test_loader_matches_jax(tiny_causal_checkpoint, quant):
         num_key_value_heads=2, rms_norm_eps=hf["rms_norm_eps"], rope_theta=hf["rope_theta"], attention_bias=True,
     )
     with pytest.raises(NotImplementedError):
-        th.load_decoder_params(tiny_causal_checkpoint, 2, quant="w4a8")
+        th.load_decoder_params(tiny_causal_checkpoint, 2, quant="w4a8", device="cpu")

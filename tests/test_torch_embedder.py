@@ -250,3 +250,13 @@ def test_embedder_defaults_to_the_card(tiny_gte_checkpoint):
     tree = gte_from_jax(DecoderConfig(**ARCH), params_np, "cpu", torch.float32, BatchCharTok()).params
     with no_card:
         tq.GTEEmbedder(DecoderConfig(**ARCH), tree, BatchCharTok())
+
+
+def test_decoder_loader_defaults_to_the_card(tiny_gte_checkpoint):
+    """``load_decoder_params`` resolves its default device like every other
+    loader: without a card it raises instead of loading onto the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        th.load_decoder_params(tiny_gte_checkpoint, 2)
+    assert th.load_decoder_params(tiny_gte_checkpoint, 2, device="cpu")["final_norm"].device.type == "cpu"

@@ -224,7 +224,8 @@ def gemma_checkpoint(tmp_path):
 def test_loader_matches_jax(gemma_checkpoint):
     ref = jax.tree.map(np.asarray, jh.load_decoder_params(
         gemma_checkpoint, 4, start_layer=2, gemma=True, head_layer_sep=2, dtype=jnp.float32))
-    got = th.load_decoder_params(gemma_checkpoint, 4, dtype=torch.float32, start_layer=2, gemma=True, head_layer_sep=2)
+    got = th.load_decoder_params(gemma_checkpoint, 4, dtype=torch.float32, start_layer=2, gemma=True, head_layer_sep=2,
+                                  device="cpu")
     assert sorted(got["heads"]) == sorted(ref["heads"]) == [2, 4]
 
     def same(a, b):

@@ -9,8 +9,14 @@ sums); ``linear`` agrees with ``layers._linear`` in every form within rtol
 1e-5 in f32; ``fuse_decode_tree`` builds JAX's fused leaves where the JAX
 package fuses, and skips gate/up of unequal widths.
 
+The kernel's host plan (K slices, blocks) is the same at every row count,
+and the repack for ``_weight_int4pack_mm`` (the yardstick) dequantizes to
+K2's weights.
+
 CUDA (marked ``cuda``, skipped without a card): the kernel against its plain
-version in bf16, and a row's result with the same bits at R=1 and R=32.
+version in bf16 at the generator's five shapes and at odd ones (one slice, a
+last 16-output tile alone), and a row's result with the same bits at every R
+from 1 to 64.
 """
 
 import numpy as np
@@ -175,6 +181,45 @@ def test_kernel_gate_covers_qwen2_7b():
     assert not k2.supported(1, 3584, 96) and not k2.supported(1, 3580, 1792)
 
 
+K2_SHAPES = {  # [O, I/2] as the generator runs them, fused (chip_smoke.K2_SHAPES)
+    "qkv": (4608, 1792), "o": (3584, 1792), "gateup": (37888, 1792), "down": (3584, 9472), "lm_head": (152064, 1792),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K2_SHAPES))
+def test_host_plan_is_the_same_at_every_row_count(name):
+    """The kernel's K slices and blocks depend on (O, I/2) only: every output
+    is summed in one order at every R, so a row has the same bits at R=1 and
+    R=32. Slices stay within the kernel's 512-column limit, and the blocks
+    fill one wave of the H100 SXM's 132 multiprocessors at most."""
+    n_out, half = K2_SHAPES[name]
+    sms = 132
+    plans = {rows: k2.plan(n_out, half, sms) for rows in range(1, k2.MAX_ROWS + 1) if k2.supported(rows, n_out, half)}
+    assert len(plans) == k2.MAX_ROWS and len(set(plans.values())) == 1
+    ks, nblk = plans[1]
+    steps = half // k2.STEP
+    assert 1 <= ks <= steps and -(-steps // ks) <= k2.MAX_SLICE_STEPS
+    assert 1 <= nblk <= -(-n_out // k2.TILE_O) and nblk * ks <= sms
+
+
+@pytest.mark.parametrize("n_out,half,group", [(96, 128, 128), (64, 256, 64)])
+def test_int4pack_operands_dequantize_to_k2_weights(n_out, half, group):
+    """The yardstick's repack for ``_weight_int4pack_mm``: PyTorch's rule
+    ``(u - 8) * scale + zero`` on the repacked bytes gives K2's signed
+    nibbles times the bf16-rounded scale, every value -8..7 included."""
+    g = torch.Generator().manual_seed(n_out)
+    w = torch.randint(-128, 128, (n_out, half), generator=g, dtype=torch.int32).to(torch.int8)
+    w[0] = torch.arange(half) % 256 - 128  # every byte, so every pair of nibbles
+    scale = torch.rand(n_out, generator=g) * 2e-3 + 1e-4
+    w_u8, sz = k2.int4pack_operands(w, scale, group)
+    assert w_u8.dtype == torch.uint8 and w_u8.shape == (n_out, half)
+    assert sz.dtype == torch.bfloat16 and sz.shape == (2 * half // group, n_out, 2)
+    want = quant.unpack_int4(w).float() * scale.to(torch.bfloat16).float()[:, None]
+    assert torch.equal(k2.int4pack_dequantize(w_u8, sz), want)
+    with pytest.raises(ValueError):
+        k2.int4pack_operands(w, scale, 3 * half)
+
+
 def test_wrapper_rejects_bad_arguments():
     x = torch.zeros(2, 256)
     w = torch.zeros(64, 128, dtype=torch.int8)
@@ -194,16 +239,16 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_out,half", [(4608, 1792), (3584, 9472), (64, 128)])
+@pytest.mark.parametrize("n_out,half", [*K2_SHAPES.values(), (3584, 3584), (512, 1792), (64, 128), (80, 64)])
 def test_kernel_matches_plain_and_is_row_count_independent_on_card(cuda, n_out, half):
     g = torch.Generator(device=cuda).manual_seed(n_out)
     w = torch.randint(-128, 128, (n_out, half), generator=g, device=cuda, dtype=torch.int32).to(torch.int8)
     scale = torch.rand(n_out, generator=g, device=cuda) * 0.01 + 1e-3
     x = torch.randn(64, 2 * half, generator=g, device=cuda).to(torch.bfloat16)
     before = k2.launches
-    full = {r: k2.int4_matvec(x[:r].contiguous(), w, scale) for r in (1, 5, 32, 64)}
+    full = {r: k2.int4_matvec(x[:r].contiguous(), w, scale) for r in (1, 5, 8, 32, 33, 64)}
     torch.cuda.synchronize()
-    assert k2.launches == before + 4
+    assert k2.launches == before + 6
     for r, y in full.items():
         # one bf16 rounding of each output, plus f32-order slack
         p = k2.int4_matvec_plain(x[:r], w, scale).float()

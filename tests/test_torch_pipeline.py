@@ -372,7 +372,7 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
               os.path.join(ckpt, "model.safetensors"))
     cfg = DecoderConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
                         num_attention_heads=2, num_key_value_heads=1, attention_bias=True)
-    params = fuse_decode_tree(load_decoder_params(ckpt, 2, dtype=torch.float32, quant="int4"))
+    params = fuse_decode_tree(load_decoder_params(ckpt, 2, dtype=torch.float32, quant="int4", device="cpu"))
     ids = torch.tensor([[0, 0, 5, 7, 9, 11, 3, 2]], dtype=torch.int32)
     toks = decode.generate_greedy(cfg, params, ids, (ids > 0).to(torch.int32), torch.tensor([63], dtype=torch.int32), 4)
 
