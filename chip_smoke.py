@@ -29,9 +29,10 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    K3 (``flash_attention``) at B=1, S=7680 and at B=4, S=2048 left-padded,
    28 query heads of 128 on 4 KV heads, then at head_dim 64 (28 on 4), 192
    (16 on 4), 256 (16 on 8) and 320 (8 on 2), both padding sides, at S=2048
-   and (64, 256, 320) S=200 with ragged and empty rows (an empty row must be
-   zero); max error, median times from CUDA events, and SDPA's time on the
-   same inputs;
+   and (64, 256, 320) S=200, and at 576 (4 on 2) and 1024 (4 on 1), past
+   512 where Q and K stream through shared memory, at S=520, with ragged and
+   empty rows (an empty row must be zero); max error, median times from
+   CUDA events, and SDPA's time on the same inputs;
 3. the port's ``EasyRAGPipeline.run`` on ``configs/easyrag.yaml`` over a
    seeded synthetic corpus of 20,000 chunks, with the full-width
    bge-reranker-v2-minicpm-layerwise (hidden 2304, 36x64 heads, 40 layers,
@@ -89,7 +90,31 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    shapes and right padding the boot and the queries gave it (every
    index-build batch, B=128, S=2048, with the plain version over 8-row
    slices; each query at B=1), and at B=32, S=1024, B=8, S=2048 and B=1,
-   S=128, ragged; and the peak device memory.
+   S=128, ragged; and the peak device memory;
+8. the flagship preset: ``EasyRAGPipeline.run`` on
+   ``configs/four_tenant.yaml`` over phase 3's corpus, reranking with phase
+   3's MiniCPM quantized to w8a8 on the card (``tpu.reranker_quant``: int8
+   weights, activations quantized per token, ``torch._int_mm``) behind
+   ``LLMRerank`` with the preset's carried two-stage cascade
+   (``use_efficient`` 3, keep 32, judge layer 12, ``cascade_carry``), and
+   answering with phase 5's int4 generator, which the pipeline wraps in its
+   own ``BatchingLocalLLM``. Launch counts are reset just before the three
+   queries and read just after: K1, K2 and K3 must run on every query, K5 on
+   the long one; each query's retrieval, stage-1 and stage-2 rerank and
+   generation times. Then the checks: the carried stage 2 against the
+   re-score path on the same survivors (within ``CARRY_TOL`` of the scores'
+   scale, the same top 6); w8a8 against the bf16 scorer on one 32-pair batch
+   (the last hidden states' cosine above 0.99; the top-6 orders reported);
+   a 2-layer w8a8 cut on the card against the CPU in f32 (cosine above
+   0.99); ``linear(a8=True)`` on the card equal to the CPU's bit for bit at
+   the gate projection. Times: each projection shape as ``F.linear`` in
+   bf16 against w8a8's quantization, ``_int_mm`` and rescale; one batch in
+   bf16 and in w8a8; each query's rerank stage at ``use_efficient`` 0, the
+   cascade re-scoring and the cascade with the carry, with the device memory
+   each adds. Last the yes-logit scorer (``models/yes_logit.py``) on phase
+   7's gte-Qwen2-7B-width tree rebuilt from its seed (the head tied to the
+   embedding): one 32-pair batch in bf16 and w8a8 (K3 in every layer), and a
+   2-layer w8a8 cut against the CPU.
 
 Every kernel's entry in the JSON line carries its bound at the timed shape
 (the larger of its operations over the card's peak for their type and its
@@ -103,7 +128,8 @@ layout with the per-channel scale as every group's bf16 scale).
 Prints its total seconds, one JSON line of kernel results (K1's and K5's
 times at the pipeline's shapes, K2's gateup's at R=1, K3's at both call
 sites: the prefill's at B=1, S=7680 and the embedder's at the boot's first
-index-build batch, K4's at B=32, S=1152), the ``nvidia-smi`` line, and last
+index-build batch, K4's at B=32, S=1152; launches from phases 3, 5, 6 and
+7, each kernel's own main path), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -196,6 +222,12 @@ INDEX_QUERIES = 32
 # may differ only among docs this close
 DENSE_TIE_ATOL = 1e-5
 EMB_REL_TOL = GEN_REL_TOL  # bf16 card vs f32 CPU, 2 embedder layers, relative L2 of each embedding
+# the carried cascade's stage 2 against the re-score path, per survivor:
+# |carry - rescore| <= CARRY_TOL * the survivors' largest |score|. Both run
+# the same bf16 layers 12-28 on the same rows; the carried rows sit in a
+# batch of another width and (left padding) at other absolute positions,
+# which moves a few bf16 roundings of the hidden state
+CARRY_TOL = 2e-2
 # the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -634,15 +666,17 @@ def phase_new_kernels(torch, np, k2, k3):
     phase_k2(torch, k2, gen, errs, times, extra)
     # the prefill's shape and a left-padded batch at head_dim 128 (the main
     # path), then head_dim 64 with grouped KV heads (28 on 4), 192 (16 on 4),
-    # 256 (16 on 8) and 320 (8 on 2: V's columns in two groups), both padding
-    # sides, ragged rows and an empty one
+    # 256 (16 on 8), 320 (8 on 2: V's columns in two groups), 576 (4 on 2)
+    # and 1024 (4 on 1), both padding sides, ragged rows and an empty one
     ragged = [2048, 1500, 700, 40]
     cases = [(1, 7680, [7680], "left", 28, 4, 128), (4, 2048, ragged, "left", 28, 4, 128)]
     for side in ("left", "right"):
         cases += [(4, 2048, ragged, side, 28, 4, 64), (4, 2048, ragged, side, 16, 4, 192),
                   (4, 2048, ragged, side, 16, 8, 256), (4, 2048, ragged, side, 8, 2, 320),
                   (4, 200, [200, 130, 1, 0], side, 28, 4, 64), (4, 200, [200, 130, 1, 0], side, 16, 8, 256),
-                  (4, 200, [200, 130, 1, 0], side, 8, 2, 320)]
+                  (4, 200, [200, 130, 1, 0], side, 8, 2, 320),
+                  # past 512: Q and K stream through shared memory in 64-dim panels
+                  (4, 520, [520, 300, 1, 0], side, 4, 2, 576), (4, 520, [520, 257, 1, 0], side, 4, 1, 1024)]
     for B, S, lengths, side, nh, nkv, hd in cases:
         args = k3_case(torch, gen, B, S, lengths, side, nh, nkv, hd)
         err, row_rel = k3_compare(torch, k3, args)
@@ -1148,7 +1182,7 @@ def phase_generator(torch, np, pipeline, queries, k1, k2, k3, k5):
     rel = generator_vs_cpu(torch, np, cfg, params)
     peak = torch.cuda.max_memory_allocated() / 2**30
     say(f"peak device memory in phase 5: {peak:.2f} GiB")
-    return launches, rel
+    return launches, rel, (cfg, params)
 
 
 def k4_case(torch, gen, B, S, lengths):
@@ -1584,6 +1618,7 @@ def embedder_vs_cpu(torch, np, cfg, params, tokenizer):
 def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
     say("== phase 7: the dense route (gte-Qwen2-7B-instruct, K3 at layers.attention, cosine index, RRF)")
     import gc
+    import shutil
 
     from easyrag_tpu_torch.config import load_config
     from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
@@ -1691,6 +1726,7 @@ def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
     say(f"reboot from the saved index: {secs:.1f} s, nothing embedded, the same {n} nodes and index bits")
     del again, dense
     gc.collect()
+    shutil.rmtree(data)  # it lies inside phase 3's corpus, which phase 8 reads again
 
     embedder_vs_cpu(torch, np, cfg, params, tokenizer)
     # K3 at the shapes and paddings the boot and the queries gave it
@@ -1705,6 +1741,387 @@ def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
     peak = torch.cuda.max_memory_allocated() / 2**30
     say(f"peak device memory in phase 7: {peak:.2f} GiB")
     return launches, k3_err, k3_times, ("boot", *boot_shapes[0][:2])
+
+
+class StageClock:
+    """Wall milliseconds in each cascade stage's scorer calls: stage 1 is
+    ``score_pairs_carry`` (or ``score_pairs`` below the full cutoff), stage 2
+    ``score_carried`` (or ``score_pairs`` at it). Every call returns host
+    scores, so it ends in a device sync."""
+
+    def __init__(self, scorer, full_cutoff: int) -> None:
+        self.ms = {"stage 1": 0.0, "stage 2": 0.0}
+        self.scorer, self.full = scorer, full_cutoff
+        for name in ("score_pairs", "score_pairs_carry", "score_carried"):
+            setattr(scorer, name, self._timed(name, getattr(scorer, name)))
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            stage1 = name == "score_pairs_carry" or (name == "score_pairs" and self.scorer.cutoff_layer < self.full)
+            self.ms["stage 1" if stage1 else "stage 2"] += (time.perf_counter() - t) * 1e3
+            return out
+        return call
+
+    def take(self):
+        out = dict(self.ms)
+        self.ms = {k: 0.0 for k in self.ms}
+        return out
+
+    def remove(self):
+        for name in ("score_pairs", "score_pairs_carry", "score_carried"):
+            delattr(self.scorer, name)
+
+
+def candidates(pipeline, query):
+    """The fused candidate list of a query (retrieval and fusion, as
+    ``generation_with_knowledge_retrieval`` makes it), fresh nodes each call."""
+    from easyrag_tpu_torch.retrievers import HybridRetriever
+    from easyrag_tpu_torch.schema import QueryBundle
+
+    pipeline.filter_dict = pipeline.sparse_retriever.filter_dict = (
+        {"dir": query["document"]} if query.get("document") else None)
+    bundle = QueryBundle(query_str=query["query"])
+    routes = pipeline._dual_retrieve(bundle)
+    if routes is None:
+        routes = (pipeline.sparse_retriever.retrieve(bundle), pipeline.path_retriever.retrieve(bundle))
+    return HybridRetriever.fusion(list(routes))
+
+
+def last_hidden(torch, scorer, pairs):
+    """The hidden state at each row's last real token after ``cutoff_layer``
+    layers, f32 ``[B, D]``."""
+    ids, mask = scorer.build_inputs(pairs)
+    ranges, last, rope = scorer._prepare(mask)
+    dev = scorer.final_norm.device
+    with torch.inference_mode():
+        from easyrag_tpu_torch.models.layers import embed
+
+        h = embed(scorer.cfg, scorer.embed, torch.from_numpy(ids).to(dev), scorer.final_norm.dtype)
+        h = scorer._segment(h, ranges, rope, 0, scorer.cutoff_layer)
+        return h[torch.arange(h.shape[0], device=dev), last].float()
+
+
+def cosines(a, b):
+    """Per-row cosine of two ``[B, D]`` f32 tensors (on the CPU)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def minicpm_w8a8_vs_cpu(torch, np, scorer8, pairs):
+    """A 2-layer cut of the card's w8a8 MiniCPM (the same int8 leaves; head 2
+    takes head 28's weights) in bf16 on the card against the same cut in f32
+    on the CPU. Each activation's bf16 rounding moves about a quarter of its
+    int8 codes by one step against the f32 run's, so the two differ by
+    w8a8's own noise: the last hidden states' cosine gates at
+    tests/test_w8a8.py's 0.99, and the scores are reported."""
+    from easyrag_tpu_torch.models.layers import quantize_layers_
+    from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
+
+    cut = dataclasses.replace(scorer8.cfg, num_hidden_layers=2, act_quant=False)
+    state = {k: v for k, v in scorer8.state_dict().items() if not k.startswith("layers.") or int(k.split(".")[1]) < 2}
+    head = scorer8.heads[28]
+    state["heads"] = torch.stack([torch.zeros_like(head), torch.zeros_like(head), head])
+    scores, hidden = {}, {}
+    for name, dev, dt in (("card", torch.device("cuda"), torch.bfloat16), ("cpu", torch.device("cpu"), torch.float32)):
+        m = quantize_layers_(MiniCPMLayerWiseReranker(cut, scorer8.tokenizer, start_layer=2, cutoff_layer=2,
+                                                      max_length=MAX_LENGTH, use_efficient=scorer8.use_efficient,
+                                                      device=dev, dtype=dt), "w8a8")
+        m.load_state_dict(state)  # copied into each parameter's own device and dtype
+        scores[name], hidden[name] = m.score_pairs(pairs)[0], last_hidden(torch, m, pairs)
+        del m
+    cos = cosines(hidden["card"], hidden["cpu"])
+    rel = float(np.linalg.norm(scores["card"] - scores["cpu"]) / np.linalg.norm(scores["cpu"]))
+    say(f"w8a8 MiniCPM, 2 layers, card bf16 vs CPU f32: last hidden cosine {[round(float(c), 5) for c in cos]} "
+        f"(bound 0.99); scores {scores['card'].tolist()} vs {scores['cpu'].tolist()} (rel L2 {rel:.3e})")
+    check(np.isfinite(scores["card"]).all() and float(cos.min()) > 0.99,
+          "the w8a8 MiniCPM disagrees with the CPU reference")
+    return float(cos.min())
+
+
+def a8_projection_checks(torch, np, scorer8, scorer16, S):
+    """``linear(a8=True)`` on the card bit-equal to the same call on the CPU
+    at one MiniCPM projection (gate, [S, 2304] -> 5760); then each
+    projection shape of a 32-pair batch (B*S rows, [2304 -> 2304, 5760] and
+    [5760 -> 2304]) timed as ``F.linear`` in bf16 and as w8a8's parts: the
+    per-token quantization, ``torch._int_mm`` and the rescale."""
+    from easyrag_tpu_torch.models.layers import int8_matmul, linear, quantize_tokens, rescale_s32
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    leaf = {k: v.detach() for k, v in scorer8.layers[0].gate.items()}
+    x = (torch.randn(S, leaf["w_q"].shape[1], generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    card = linear(x, leaf, a8=True).cpu()
+    cpu = linear(x.cpu(), {k: v.cpu() for k, v in leaf.items()}, a8=True)
+    same = torch.equal(card.view(torch.int16), cpu.view(torch.int16))
+    say(f"linear(a8=True) at the gate projection [{S}, 2304] -> 5760: card and CPU bit-equal: {same}")
+    check(same, "linear(a8=True) on the card differs from the CPU in bits")
+    rows = 32 * S
+    times = {}
+    for name, n_in, n_out, leaf8, w16 in (
+        ("q/k/v/o", 2304, 2304, scorer8.layers[0].q, scorer16.layers[0].q["w"]),
+        ("gate/up", 2304, 5760, scorer8.layers[0].gate, scorer16.layers[0].gate["w"]),
+        ("down", 5760, 2304, scorer8.layers[0].down, scorer16.layers[0].down["w"]),
+    ):
+        x = torch.randn(rows, n_in, generator=gen, device="cuda").to(torch.bfloat16)
+        w8, scale = leaf8["w_q"].detach(), leaf8["scale"].detach()
+        xq, xs = quantize_tokens(x)
+        y = int8_matmul(xq, w8)
+        t_bf16 = cuda_ms(torch, lambda: torch.nn.functional.linear(x, w16), reps=5)
+        t_quant = cuda_ms(torch, lambda: quantize_tokens(x), reps=5)
+        t_mm = cuda_ms(torch, lambda: int8_matmul(xq, w8), reps=5)
+        t_scale = cuda_ms(torch, lambda: rescale_s32(y, xs, scale, torch.bfloat16), reps=5)
+        t_a8 = cuda_ms(torch, lambda: linear(x, leaf8, a8=True), reps=5)
+        ops = 2 * rows * n_in * n_out
+        times[name] = (t_bf16, t_quant, t_mm, t_scale, t_a8)
+        say(f"projection {name} [{rows}, {n_in}] -> {n_out}: F.linear bf16 {t_bf16:.3f} ms "
+            f"({ops / t_bf16 / 1e9:.0f} TFLOP/s); w8a8 {t_a8:.3f} ms = quantization {t_quant:.3f} + _int_mm "
+            f"{t_mm:.3f} ({ops / t_mm / 1e9:.0f} TOP/s) + rescale {t_scale:.3f}")
+        del x, xq, xs, y
+    torch.cuda.empty_cache()
+    return times
+
+
+def rerank_stage_ms(torch, pipeline, scorer, cfg, queries):
+    """The rerank stage of each query with the w8a8 scorer at
+    ``use_efficient`` 0, 3 without the carry and 3 with it (fresh candidates
+    each run), and the peak device bytes each run adds to what is resident."""
+    from easyrag_tpu_torch.rerankers import LLMRerank
+    from easyrag_tpu_torch.schema import QueryBundle
+
+    modes = (("use_efficient 0", 0, False), ("cascade, re-score", 3, False), ("cascade, carry", 3, True))
+    out = {}
+    for name, q, _ in queries:
+        row = {}
+        for mode, eff, carry in modes:
+            rr = LLMRerank(scorer, top_n=cfg.r_topk, embed_bs=cfg.r_embed_bs, embed_type=cfg.r_embed_type,
+                           use_efficient=eff, cascade_keep=cfg.tpu.cascade_keep, cascade_carry=carry)
+            nodes = candidates(pipeline, q)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            rr.postprocess_nodes(nodes, QueryBundle(query_str=q["query"]))
+            torch.cuda.synchronize()
+            row[mode] = ((time.perf_counter() - t) * 1e3, (torch.cuda.max_memory_allocated() - base) / 2**30)
+        out[name] = row
+        say(f"rerank stage, query {name!r}: " + "; ".join(
+            f"{mode} {ms:.1f} ms (peak +{gib:.2f} GiB)" for mode, (ms, gib) in row.items()))
+    return out
+
+
+def phase_yes_logit(torch, np, pairs, mods):
+    """The yes-logit scorer on phase 7's gte-Qwen2-7B-width tree, rebuilt
+    from its seed (no ``lm_head``: the head is tied to ``embed``): one
+    32-pair batch in bf16 and w8a8, K3's launches, and a 2-layer w8a8 cut on
+    the card against the CPU in f32 on two short pairs (the last hidden
+    states' cosine gates, as for the MiniCPM cut)."""
+    from easyrag_tpu_torch.models.layers import forward_hidden
+    from easyrag_tpu_torch.models.minicpm import last_real_index
+    from easyrag_tpu_torch.models.quant import quantize_decoder_tree
+    from easyrag_tpu_torch.models.yes_logit import YesLogitScorer
+
+    k3 = mods["K3"]
+    cfg, params = build_embedder(torch, SEED + 12)
+    tok = CharTokenizer(cfg.vocab_size)
+    results = {}
+    for quant in ("", "w8a8"):
+        if quant:
+            params = quantize_decoder_tree(params, "int8")
+            cfg = dataclasses.replace(cfg, act_quant=True)
+            torch.cuda.empty_cache()
+        scorer = YesLogitScorer(cfg, params, tok, max_length=MAX_LENGTH)
+        ids, _ = scorer.build_inputs(pairs)
+        scorer.score_pairs(pairs)  # warm-up
+        k3.launches = 0
+        scores, _ = scorer.score_pairs(pairs)
+        n3 = k3.launches
+        ms = cuda_ms(torch, lambda: scorer.score_pairs(pairs), reps=3, warmup=0)
+        results[quant or "bf16"] = scores
+        say(f"yes-logit scorer ({quant or 'bf16'}, {tree_bytes(params) / 2**30:.2f} GiB, head tied to embed): "
+            f"{len(pairs)} pairs at S={ids.shape[1]} in {ms:.1f} ms; K3 launches {n3} "
+            f"({cfg.num_hidden_layers} layers); scores finite: {bool(np.isfinite(scores).all())}")
+        check(np.isfinite(scores).all() and n3 == cfg.num_hidden_layers, "the yes-logit scorer did not run K3 in every layer")
+    a, b = results["bf16"], results["w8a8"]
+    say(f"yes-logit w8a8 vs bf16: top-6 {[int(i) for i in np.argsort(-b)[:6]]} vs {[int(i) for i in np.argsort(-a)[:6]]}, "
+        f"largest difference {float(np.abs(a - b).max()):.3e} at a scale of {float(np.abs(a).max()):.3e}")
+    # 2 layers on the card against the CPU in f32 (the same int8 leaves)
+    cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
+    cut = {**params, "layers": params["layers"][:2]}
+
+    def to_cpu(t, key=""):
+        if isinstance(t, dict):
+            return {k: to_cpu(v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.cpu() if key in ("w_q", "w_p", "scale") else t.float().cpu()
+
+    short = [(q, p[:40]) for q, p in pairs[:2]]
+    out = {}
+    for name, tree, dev in (("card", cut, "cuda"), ("cpu", to_cpu(cut), "cpu")):
+        sc = YesLogitScorer(cut_cfg, tree, tok, max_length=MAX_LENGTH, device=dev)
+        ids, mask = sc.build_inputs(short)
+        with torch.inference_mode():
+            h = forward_hidden(cut_cfg, sc.params, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+            last = torch.from_numpy(last_real_index(mask)).to(dev)
+            out[name] = (sc.score_pairs(short)[0], h[torch.arange(len(short), device=dev), last])
+    cos = cosines(out["card"][1], out["cpu"][1])
+    say(f"yes-logit w8a8, 2 layers, card bf16 vs CPU f32: last hidden cosine {[round(float(c), 5) for c in cos]} "
+        f"(bound 0.99); scores {out['card'][0].tolist()} vs {out['cpu'][0].tolist()}")
+    check(np.isfinite(out["card"][0]).all() and float(cos.min()) > 0.99,
+          "the yes-logit scorer disagrees with the CPU reference")
+    del params, cut
+
+
+def phase_flagship(torch, np, tmp, scorer16, generator, queries, mods):
+    """``configs/four_tenant.yaml`` on the card: phase 3's corpus, phase 3's
+    MiniCPM quantized to w8a8, the carried two-stage cascade, phase 5's int4
+    generator answering."""
+    say("== phase 8: the flagship preset (configs/four_tenant.yaml): w8a8 MiniCPM, carried cascade, int4 answers")
+    import copy
+    import gc
+
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.models.decode import TorchCausalLM
+    from easyrag_tpu_torch.models.layers import quantize_layers_
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+    from easyrag_tpu_torch.rerankers import LLMRerank
+    from easyrag_tpu_torch.utils import events
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(os.path.join(REPO, "configs", "four_tenant.yaml"), overrides={"data_path": tmp})
+    check(cfg.r_use_efficient == 3 and cfg.tpu.cascade_carry and cfg.tpu.reranker_quant == "w8a8"
+          and cfg.tpu.local_llm_quant == "int4" and cfg.tpu.local_llm_answer, "configs/four_tenant.yaml changed")
+    t0 = time.perf_counter()
+    scorer = quantize_layers_(copy.deepcopy(scorer16), cfg.tpu.reranker_quant)
+    scorer.use_efficient = cfg.r_use_efficient
+    torch.cuda.synchronize()
+    say(f"reranker: phase 3's MiniCPM quantized to {cfg.tpu.reranker_quant} on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {tree_bytes(dict(scorer.state_dict())) / 2**30:.2f} GiB "
+        f"(bf16: {tree_bytes(dict(scorer16.state_dict())) / 2**30:.2f} GiB); judge layer {scorer.efficient_layers[0]}, "
+        f"cutoff {scorer.cutoff_layer}")
+    rr = LLMRerank(scorer, top_n=cfg.r_topk, embed_bs=cfg.r_embed_bs, embed_type=cfg.r_embed_type,
+                   use_efficient=cfg.r_use_efficient, cascade_keep=cfg.tpu.cascade_keep,
+                   cascade_carry=cfg.tpu.cascade_carry)
+    gcfg, gparams = generator
+    model = TorchCausalLM.from_params(gcfg, gparams, QwenCharTokenizer(), QWEN2_EOS,
+                                      max_new_tokens=cfg.tpu.local_llm_max_new, max_batch=cfg.tpu.local_llm_gen_batch,
+                                      spec_tokens=cfg.tpu.local_llm_spec, spec_ngram=cfg.tpu.local_llm_spec_ngram)
+    # no checkpoint is in the repository: the pipeline's local generator is
+    # phase 5's seeded int4 model, behind the BatchingLocalLLM it builds itself
+    saved = EasyRAGPipeline.__dict__["_make_local_llm"]
+    EasyRAGPipeline._make_local_llm = staticmethod(lambda c, d: model)
+    try:
+        t0 = time.perf_counter()
+        pipeline = EasyRAGPipeline(
+            cfg, reranker=rr, sparse_tokenizer=SparseTokenizer(),
+            splitter=SentenceSplitter(cfg.chunk_size, cfg.chunk_overlap, token_counter=approx_token_count,
+                                      sentence_splitter=lambda t: [t]),
+            device=torch.device("cuda"),
+        )
+    finally:
+        EasyRAGPipeline._make_local_llm = saved
+    torch.cuda.synchronize()
+    check(len(pipeline.nodes) == N_DOCS and pipeline.local_llm is model, "the flagship pipeline did not boot as configured")
+    say(f"pipeline boot: {len(pipeline.nodes)} chunks in {time.perf_counter() - t0:.1f} s; answers by "
+        f"{type(pipeline.llm).__name__} (window {cfg.serve_window_ms} ms, batch {cfg.tpu.local_llm_gen_batch})")
+    asyncio.run(pipeline.run(dict(queries[0][1])))  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    clock = StageClock(scorer, scorer.cutoff_layer)
+    stages = []
+    unsubscribe = events.on(lambda kind, p: stages.append((p["name"], p["seconds"] * 1e3)) if kind == "timing" else None)
+    results = []
+    clock.take()
+    for mod in mods.values():
+        mod.launches = 0
+    for name, q, _ in queries:
+        before = {key: mod.launches for key, mod in mods.items()}
+        t = time.perf_counter()
+        out = asyncio.run(pipeline.run(dict(q)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        results.append((name, out, ms, {key: mod.launches - before[key] for key, mod in mods.items()}, dict(stages),
+                        clock.take()))
+        stages.clear()
+    launches = {key: mod.launches for key, mod in mods.items()}
+    unsubscribe()
+    clock.remove()
+    for name, out, ms, dl, st, sc in results:
+        split = ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
+        say(f"query {name!r}: {ms:.1f} ms ({split}); rerank stage 1 {sc['stage 1']:.1f} ms, stage 2 (carried) "
+            f"{sc['stage 2']:.1f} ms; K1 {dl['K1']}, K2 {dl['K2']}, K3 {dl['K3']}, K5 {dl['K5']} launches; "
+            f"top-6 {[n.node.idx for n in out['nodes']]}")
+        check(dl["K1"] > 0 and dl["K2"] > 0 and dl["K3"] > 0, f"query {name!r}: K1, K2 or K3 did not run")
+        check(len(out["nodes"]) == cfg.r_topk and all(np.isfinite(n.score) for n in out["nodes"]),
+              f"query {name!r}: wrong rerank result")
+        check(isinstance(out["answer"], str) and len(out["answer"]) > 0, f"query {name!r}: empty answer")
+    check(results[2][3]["K5"] > 0, "K5 did not run on the long query")
+    say(f"launches over the three flagship queries: {launches}")
+
+    # (1) the carried stage 2 against the re-score path on the same survivors
+    q0 = queries[0][1]
+    nodes = candidates(pipeline, q0)
+    scores = {}
+    for carry in (False, True):
+        rr.cascade_carry = carry
+        scores[carry] = rr._score_cascade(nodes, q0["query"])
+    rr.cascade_carry = cfg.tpu.cascade_carry
+    keep = min(max(cfg.tpu.cascade_keep, cfg.r_topk), len(nodes))
+    surv = np.argsort(-scores[False], kind="stable")[:keep]
+    diff = np.abs(scores[True][surv] - scores[False][surv])
+    scale = float(np.abs(scores[False][surv]).max())
+    order = [[int(i) for i in np.argsort(-scores[c], kind="stable")[:cfg.r_topk]] for c in (False, True)]
+    say(f"carried stage 2 vs re-score, {len(nodes)} candidates, {keep} survivors: largest difference {diff.max():.3e} "
+        f"({diff.max() / scale:.3e} of the scores' scale {scale:.3e}, bound {CARRY_TOL}); top-{cfg.r_topk} "
+        f"{order[1]} vs {order[0]}")
+    check(bool((diff <= CARRY_TOL * scale).all()) and order[0] == order[1],
+          "the carried cascade disagrees with the re-score path")
+
+    # (2) w8a8 against the card's bf16 scorer on the same weights, one
+    # 32-pair batch: the last hidden states' cosine (tests/test_w8a8.py's
+    # bound) gates; the top-6 orders and the scores' gaps are reported. On
+    # random weights the pairs' scores lie closer together than w8a8's score
+    # error, so their order is not a property of the code (the CPU tests hold
+    # the exact ranking at their small size)
+    batch = [(q0["query"], n.node.text) for n in nodes[: cfg.r_embed_bs]]
+    saved16 = scorer16.cutoff_layer, scorer16.use_efficient
+    scorer16.cutoff_layer, scorer16.use_efficient = scorer.cutoff_layer, scorer.use_efficient  # the same head input
+    h16, h8 = last_hidden(torch, scorer16, batch), last_hidden(torch, scorer, batch)
+    cos = (h16 * h8).sum(-1) / (h16.norm(dim=-1) * h8.norm(dim=-1))
+    s16, s8 = scorer16.score_pairs(batch)[0], scorer.score_pairs(batch)[0]
+    scorer16.cutoff_layer, scorer16.use_efficient = saved16
+    top16, top8 = [int(i) for i in np.argsort(-s16)[:cfg.r_topk]], [int(i) for i in np.argsort(-s8)[:cfg.r_topk]]
+    gaps = -np.diff(np.sort(s16)[::-1][: cfg.r_topk + 2])
+    say(f"w8a8 vs bf16, {len(batch)} pairs at cutoff {scorer.cutoff_layer}: last hidden cosine min "
+        f"{float(cos.min()):.5f}, median {float(cos.median()):.5f} (bound 0.99); scores' largest difference "
+        f"{float(np.abs(s8 - s16).max()):.4f}, median {float(np.median(np.abs(s8 - s16))):.4f}, bf16 scores' spread "
+        f"{float(s16.max() - s16.min()):.4f}; top-{cfg.r_topk} w8a8 {top8} vs bf16 {top16} "
+        f"({'equal' if top8 == top16 else 'different'}); bf16 gaps between the top {cfg.r_topk + 2}: "
+        f"{[round(float(g), 4) for g in gaps]}")
+    check(float(cos.min()) > 0.99, "w8a8's last hidden states stray from the bf16 scorer's")
+
+    # (3) 2 layers against the CPU; (4) linear(a8) card vs CPU bits and the projections' times
+    minicpm_w8a8_vs_cpu(torch, np, scorer, [(q0["query"], nodes[0].node.text[:120]), ("文档 t1 t2", nodes[1].node.text[:60])])
+    ids, _ = scorer.build_inputs(batch)
+    a8_projection_checks(torch, np, scorer, scorer16, ids.shape[1])
+
+    # times: one 32-pair batch in bf16 and w8a8; the rerank stage in three modes
+    t16 = cuda_ms(torch, lambda: scorer16.score_pairs(batch), reps=3)
+    t8 = cuda_ms(torch, lambda: scorer.score_pairs(batch), reps=3)
+    say(f"one {len(batch)}-pair batch (S={ids.shape[1]}, cutoff {scorer.cutoff_layer}): bf16 {t16:.1f} ms, "
+        f"w8a8 {t8:.1f} ms ({t16 / t8:.2f}x)")
+    rerank_stage_ms(torch, pipeline, scorer, cfg, queries)
+
+    phase_yes_logit(torch, np, batch, mods)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"peak device memory in phase 8: {peak:.2f} GiB")
+    del pipeline, model, scorer
+
 
 
 def main() -> int:
@@ -1743,10 +2160,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
             pipeline, minicpm, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, tmp)
             timings = phase_main_shapes(torch, np, f64, k5, mask, P)
-            gen_launches, _ = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
+            gen_launches, _, generator = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
             mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5}
             gemma_launches, k4_err, k4_times, _ = phase_gemma(torch, np, pipeline, queries, mods)
             dense_launches, k3e_err, k3e_times, k3e_main = phase_dense(torch, np, tmp, pipeline, minicpm, queries, mods)
+            del pipeline
+            phase_flagship(torch, np, tmp, minicpm.scorer, generator, queries, mods)
         loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
         check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:

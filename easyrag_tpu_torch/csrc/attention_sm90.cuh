@@ -177,6 +177,98 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// One key tile of the online softmax, for the two rows (row0, row1 = row0 + 8)
+// a thread holds of a 64-row group: the logits sc of wgmma m64n64 are scaled
+// (and softcapped), masked on tiles that straddle the diagonal or a range
+// edge (keys k0 + 8 nt + c2 + {0, 1}), the running maxima m and sums l are
+// updated, a0/a1 are the factors O must be rescaled by, and pa holds the
+// unnormalised probabilities (ex2.approx, rounded to bf16) as the A
+// fragments of O += P V.
+template <bool SOFTCAP>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], uint32_t (&pa)[4][4], float& m0, float& m1, float& l0,
+                                             float& l1, float& a0, float& a1, bool edge, int k0, int row0, int row1,
+                                             int c2, int start, int end, float scale, float cap2) {
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = SOFTCAP ? cap2 * tanhf(sc[4 * nt + e] * scale) : sc[4 * nt + e] * scale;
+      if (edge) {
+        const int j = k0 + 8 * nt + c2 + (e & 1);
+        const int ii = e < 2 ? row0 : row1;
+        x = (j <= ii && j >= start && j < end) ? x : MASK_VALUE;
+      }
+      sc[4 * nt + e] = x;
+    }
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  a0 = ex2(m0 - mx0);
+  a1 = ex2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float p00 = ex2(sc[4 * nt] - mx0);
+    const float p01 = ex2(sc[4 * nt + 1] - mx0);
+    const float p10 = ex2(sc[4 * nt + 2] - mx1);
+    const float p11 = ex2(sc[4 * nt + 3] - mx1);
+    ps0 += p00 + p01;
+    ps1 += p10 + p11;
+    pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p00, p01);
+    pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p10, p11);
+  }
+  l0 = l0 * a0 + ps0;
+  l1 = l1 * a1 + ps1;
+}
+
+// The end of a 64-row group: the row sums reduced over the quad, O divided
+// by them (a row that visited no key gets zeros), each warp's own 16 rows
+// staged in `stage` (64-dim swizzled panels, free to overwrite), then written
+// as 16-byte row chunks of npv panels: row r of the group to out[(r0q + r) *
+// F ...] (out already offset to the batch row and the first column), rows at
+// or past S skipped.
+template <int NPV>
+__device__ __forceinline__ void store_rows(const float (&o)[NPV][32], float l0, float l1, uint8_t* stage, int npv,
+                                           int r0q, int S, __nv_bfloat16* out, int F) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
+  const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+  const int r = warp * 16 + g;
+#pragma unroll
+  for (int p = 0; p < NPV; ++p) {
+    __nv_bfloat16* panel = (__nv_bfloat16*)(stage + p * PANEL_BYTES);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      *reinterpret_cast<uint32_t*>(panel + swz(r, nt) + c2) = pack_bf16(o[p][4 * nt] * inv0, o[p][4 * nt + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(panel + swz(r + 8, nt) + c2) =
+          pack_bf16(o[p][4 * nt + 2] * inv1, o[p][4 * nt + 3] * inv1);
+    }
+  }
+  __syncwarp();
+  for (int u = lane; u < 16 * (npv * 8); u += 32) {
+    const int rr = warp * 16 + u / (npv * 8);
+    const int c = u % (npv * 8);  // 16-byte chunk of the group's columns
+    const __nv_bfloat16* panel = (const __nv_bfloat16*)(stage + (c >> 3) * PANEL_BYTES);
+    if (r0q + rr < S)
+      *reinterpret_cast<uint4*>(out + (size_t)(r0q + rr) * F + 8 * c) = *reinterpret_cast<const uint4*>(panel + swz(rr, c & 7));
+  }
+}
+
 // kv_start/kv_end null: the whole range [0, S). softcap only with SOFTCAP.
 template <int HD, bool SOFTCAP>
 __global__ void __launch_bounds__(Shape<HD>::NT, 1)
@@ -293,45 +385,9 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
       wg_wait0();
 
       const bool edge = k0 + BK - 1 > wrow || k0 < start || k0 + BK > end;
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = SOFTCAP ? cap2 * tanhf(sc[4 * nt + e] * scale) : sc[4 * nt + e] * scale;
-          if (edge) {
-            const int j = k0 + 8 * nt + c2 + (e & 1);
-            const int ii = e < 2 ? row0 : row1;
-            x = (j <= ii && j >= start && j < end) ? x : MASK_VALUE;
-          }
-          sc[4 * nt + e] = x;
-        }
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float a0 = ex2(m0 - mx0);
-      const float a1 = ex2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
+      float a0, a1;
       uint32_t pa[4][4];
-      float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float p00 = ex2(sc[4 * nt] - mx0);
-        const float p01 = ex2(sc[4 * nt + 1] - mx0);
-        const float p10 = ex2(sc[4 * nt + 2] - mx1);
-        const float p11 = ex2(sc[4 * nt + 3] - mx1);
-        ps0 += p00 + p01;
-        ps1 += p10 + p11;
-        pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p00, p01);
-        pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p10, p11);
-      }
-      l0 = l0 * a0 + ps0;
-      l1 = l1 * a1 + ps1;
+      softmax_tile<SOFTCAP>(sc, pa, m0, m1, l0, l1, a0, a1, edge, k0, row0, row1, c2, start, end, scale, cap2);
 #pragma unroll
       for (int p = 0; p < NPV; ++p)
 #pragma unroll
@@ -358,35 +414,124 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     if (tid == 0 && atomicAdd(&finished[s], 1) % NCW == NCW - 1 && kt + NSTAGE <= kt_hi) load(i + NSTAGE);
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
-  const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
-  // stage the warp's own 16 rows in its Q tile (the warpgroup's wgmma reads of
-  // Q are complete: every product waited), then write 16-byte row chunks
+  // the warpgroup's wgmma reads of Q are complete (every product waited):
+  // its Q tile stages the output
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  const int r = warp * 16 + g;
+  store_rows<NPV>(o, l0, l1, my_q, npv, r0q, S, out + (size_t)b * S * F + h * HD + vg * NPV * PANEL, F);
+}
+
+// Head dims past 512 (K3 only): Q and K no longer fit shared memory as whole
+// 64-row tiles, so they are streamed through it in chunks of at most
+// STREAM_PANELS 64-dim panels, and the logits of a key tile accumulate in
+// registers over the chunks; V keeps the column groups of HD 320-512 (at most
+// 4 panels, one block each). One warpgroup of 64 q rows a block; its threads
+// load every tile themselves (16-byte loads into the 128-byte-swizzled
+// layout TMA would give), with a block barrier around each chunk. No model of
+// the repository has such a head dim: this path is for correctness, not speed.
+constexpr int STREAM_PANELS = 4;
+constexpr int STREAM_SMEM = 1024 + 3 * STREAM_PANELS * PANEL_BYTES;  // Q chunk, K chunk, V group
+
+// rows [r0, r0 + 64) of x ([B, S, W] bf16; rows of batch row b), dims [c0, c0 + 64 np), into np swizzled
+// panels at dst; rows at or past S are zero
+__device__ __forceinline__ void load_panels(uint8_t* dst, const __nv_bfloat16* __restrict__ x, int b, int S, int W,
+                                            int r0, int c0, int np, int tid) {
+  for (int u = tid; u < 64 * np * 8; u += 128) {
+    const int r = u / (np * 8);
+    const int c = u % (np * 8);  // 16-byte chunk of the row
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(x + ((size_t)b * S + r0 + r) * W + c0 + 8 * c);
+    *reinterpret_cast<uint4*>((__nv_bfloat16*)(dst + (c >> 3) * PANEL_BYTES) + swz(r, c & 7)) = val;
+  }
+}
+
+__global__ void __launch_bounds__(128, 1)
+attention_stream_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_start,
+                        const int32_t* __restrict__ kv_end, __nv_bfloat16* __restrict__ out, int S, int NH, int NKV,
+                        int HD, float sm_scale) {
+  constexpr int NPV = STREAM_PANELS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint8_t* sk = sq + STREAM_PANELS * PANEL_BYTES;
+  uint8_t* sv = sk + STREAM_PANELS * PANEL_BYTES;
+
+  const int np = HD / PANEL;
+  const int ng = (np + NPV - 1) / NPV;
+  const int nqt = (S + 63) / 64;
+  const int q0 = (nqt - 1 - (int)blockIdx.z) * 64;
+  const int h = blockIdx.x / ng;
+  const int vg = blockIdx.x % ng;
+  const int npv = min(NPV, np - vg * NPV);
+  const int b = blockIdx.y;
+  const int kvh = h / (NH / NKV);
+  const int F = NH * HD, W = NKV * HD;
+  const int start = max(kv_start[b], 0);
+  const int end = min(kv_end[b], S);
+  const int kt_lo = start / BK;
+  const int kt_hi = end > start ? min(q0 / BK, (end - 1) / BK) : -1;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  const int wrow = q0 + warp * 16;
+  const int row0 = wrow + g;
+  const int row1 = row0 + 8;
+  const float scale = sm_scale * LOG2E;
+  const uint64_t dq = sw128_desc(sq), dk = sw128_desc(sk), dv = sw128_desc(sv);
+  float o[NPV][32];
 #pragma unroll
-  for (int p = 0; p < NPV; ++p) {
-    __nv_bfloat16* panel = (__nv_bfloat16*)(my_q + p * PANEL_BYTES);
+  for (int p = 0; p < NPV; ++p)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(panel + swz(r, nt) + c2) = pack_bf16(o[p][4 * nt] * inv0, o[p][4 * nt + 1] * inv0);
-      *reinterpret_cast<uint32_t*>(panel + swz(r + 8, nt) + c2) =
-          pack_bf16(o[p][4 * nt + 2] * inv1, o[p][4 * nt + 3] * inv1);
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
+  float m0 = MASK_VALUE, m1 = MASK_VALUE, l0 = 0.0f, l1 = 0.0f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.0f;
+    for (int c0 = 0; c0 < np; c0 += STREAM_PANELS) {
+      const int npc = min(STREAM_PANELS, np - c0);
+      __syncthreads();  // the last products that read sq, sk (and sv) have waited
+      load_panels(sq, q, b, S, F, q0, h * HD + c0 * PANEL, npc, tid);
+      load_panels(sk, k, b, S, W, k0, kvh * HD + c0 * PANEL, npc, tid);
+      if (c0 == 0) load_panels(sv, v, b, S, W, k0, kvh * HD + vg * NPV * PANEL, npv, tid);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      wg_fence();
+      for (int ks = 0; ks < 4 * npc; ++ks) {
+        const uint64_t off = (uint64_t)(((ks >> 2) * PANEL_BYTES) >> 4) + 2 * (ks & 3);
+        wgmma_ss(sc, dq + off, dk + off, 1);
+      }
+      wg_commit();
+      wg_wait0();
     }
+    const bool edge = k0 + BK - 1 > wrow || k0 < start || k0 + BK > end;
+    float a0, a1;
+    uint32_t pa[4][4];
+    softmax_tile<false>(sc, pa, m0, m1, l0, l1, a0, a1, edge, k0, row0, row1, c2, start, end, scale, 0.0f);
+#pragma unroll
+    for (int p = 0; p < NPV; ++p)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        o[p][4 * nt] *= a0;
+        o[p][4 * nt + 1] *= a0;
+        o[p][4 * nt + 2] *= a1;
+        o[p][4 * nt + 3] *= a1;
+      }
+    wg_fence();
+#pragma unroll
+    for (int p = 0; p < NPV; ++p)
+      if (p < npv)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_rs(o[p], pa[j], dv + (uint64_t)((p * PANEL_BYTES + 2048 * j) >> 4));
+    wg_commit();
+    wg_wait0();
   }
-  __syncwarp();
-  for (int u = lane; u < 16 * (npv * 8); u += 32) {
-    const int rr = warp * 16 + u / (npv * 8);
-    const int c = u % (npv * 8);  // 16-byte chunk of the group's columns
-    const __nv_bfloat16* panel = (const __nv_bfloat16*)(my_q + (c >> 3) * PANEL_BYTES);
-    if (r0q + rr < S)
-      *reinterpret_cast<uint4*>(out + ((size_t)b * S + r0q + rr) * F + h * HD + vg * NPV * PANEL + 8 * c) =
-          *reinterpret_cast<const uint4*>(panel + swz(rr, c & 7));
-  }
+  __syncthreads();  // every product that read sq has waited: it stages the output
+  store_rows<NPV>(o, l0, l1, sq, npv, q0, S, out + (size_t)b * S * F + h * HD + vg * NPV * PANEL, F);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -433,6 +578,21 @@ int launch(const void* q, const void* k, const void* v, const void* kv_start, co
   attention_kernel<HD, SOFTCAP><<<grid, Sh::NT, Sh::SMEM_BYTES, stream>>>(
       kmap, vmap, (const __nv_bfloat16*)q, (const int32_t*)kv_start, (const int32_t*)kv_end, (__nv_bfloat16*)out, S,
       NH, NKV, sm_scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+// Head dims past 512 (attention_stream_kernel). Returns the cudaError_t of the
+// launch.
+inline int launch_stream(const void* q, const void* k, const void* v, const void* kv_start, const void* kv_end,
+                         void* out, int B, int S, int NH, int NKV, int HD, float sm_scale, cudaStream_t stream) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(attention_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STREAM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int ng = (HD / PANEL + STREAM_PANELS - 1) / STREAM_PANELS;
+  dim3 grid(NH * ng, B, (S + 63) / 64);
+  attention_stream_kernel<<<grid, 128, STREAM_SMEM, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const int32_t*)kv_start,
+      (const int32_t*)kv_end, (__nv_bfloat16*)out, S, NH, NKV, HD, sm_scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // Causal grouped-query attention with a per-row key range, every head_dim
-// that is a multiple of 64 up to 512, on Hopper (wgmma + TMA; the kernel body
-// is csrc/attention_sm90.cuh).
+// that is a multiple of 64, on Hopper (wgmma + TMA up to 512, Q and K
+// streamed in head-dim panels past it; the kernel bodies are in
+// csrc/attention_sm90.cuh).
 //
 // Replaces the stock Pallas TPU flash_attention
 // (jax.experimental.pallas.ops.tpu.flash_attention, K3) at both of its
@@ -9,8 +10,9 @@
 // easyrag_tpu/models/layers.py:351 (every layer of the gte-Qwen2 embedder,
 // right padding), causal, with the padding given as segment ids (pad 0,
 // real 1). JAX sends every head dim that is a multiple of 64 to the stock
-// kernel; this one takes them up to 512 (past 256 V's columns are split in
-// groups of at most 256, one block each; the wrapper raises past 512).
+// kernel, and so does the wrapper here: past 256 V's columns are split in
+// groups of at most 256, one block each, and past 512 Q and K stream through
+// shared memory in chunks of 4 panels (attention_stream_kernel).
 // What differs from those calls:
 //
 //   * layout: q is [B, S, NH*HD] and k, v are [B, S, NKV*HD], the
@@ -41,7 +43,7 @@
 #include "attention_sm90.cuh"
 
 // q, out: [B, S, NH*HD] bf16; k, v: [B, S, NKV*HD] bf16, 16-byte aligned;
-// kv_start, kv_end: [B] int32; NH % NKV == 0; HD a multiple of 64 up to 512.
+// kv_start, kv_end: [B] int32; NH % NKV == 0; HD a multiple of 64.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for another
 // HD or a tensor map that cannot be made).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, const void* kv_start,
@@ -54,5 +56,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (HD == D) return attn_sm90::launch<D, false>(q, k, v, kv_start, kv_end, out, B, S, NH, NKV, sm_scale, 0.0f, st);
   K3_HD(64) K3_HD(128) K3_HD(192) K3_HD(256) K3_HD(320) K3_HD(384) K3_HD(448) K3_HD(512)
 #undef K3_HD
+  if (HD > 512 && HD % 64 == 0)
+    return attn_sm90::launch_stream(q, k, v, kv_start, kv_end, out, B, S, NH, NKV, HD, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

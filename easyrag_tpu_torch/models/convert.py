@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .gemma import GemmaCostWiseReranker
-from .layers import DecoderConfig
+from .layers import _EXACT, DecoderConfig
 from .minicpm import MiniCPMLayerWiseReranker
 from .qwen2 import GTEEmbedder
 
@@ -28,37 +28,10 @@ def minicpm_from_jax(
     **scorer_kwargs,
 ) -> MiniCPMLayerWiseReranker:
     """A :class:`MiniCPMLayerWiseReranker` holding ``params_np``'s weights
-    (dense bf16/f32 trees only; heads stay f32)."""
+    (dense, int8 or int4 linears, ``MiniCPMLayerWiseReranker.load_tree_``;
+    heads stay f32). A w8a8 or w4a8 tree needs ``cfg.act_quant``."""
     model = MiniCPMLayerWiseReranker(cfg, tokenizer, device=device, dtype=dtype, **scorer_kwargs)
-
-    def put(param: torch.Tensor, leaf) -> None:
-        if not hasattr(leaf, "__array__"):
-            raise NotImplementedError(
-                f"quantized or non-dense leaf {type(leaf).__name__}: only dense weights are ported (ROADMAP Queue 1, item 4)"
-            )
-        arr = np.array(leaf, dtype=np.float32).reshape(param.shape)
-        param.copy_(torch.from_numpy(arr))
-
-    def dense(p: Dict[str, Any]):
-        if set(p) != {"w"}:
-            raise NotImplementedError(
-                f"linear with {sorted(p)}: biases and int8/w8a8/int4 weights are not ported (ROADMAP Queue 1, item 4)"
-            )
-        return p["w"]
-
-    with torch.no_grad():
-        put(model.embed, params_np["embed"])
-        put(model.final_norm, params_np["final_norm"])
-        for layer, p in zip(model.layers, params_np["layers"], strict=True):
-            put(layer.input_norm, p["input_norm"])
-            put(layer.post_norm, p["post_norm"])
-            for name in ("q", "k", "v", "o"):
-                put(getattr(layer, name), dense(p["attn"][name]))
-            for name in ("gate", "up", "down"):
-                put(getattr(layer, name), dense(p["mlp"][name]))
-        for layer_idx, w in params_np["heads"].items():
-            put(model.heads[int(layer_idx)], w)
-    return model
+    return model.load_tree_(params_np)
 
 
 def gemma_from_jax(
@@ -70,12 +43,12 @@ def gemma_from_jax(
     **scorer_kwargs,
 ) -> GemmaCostWiseReranker:
     """A :class:`GemmaCostWiseReranker` holding a JAX Gemma tree's weights
-    (``heads`` keyed by layer; dense weights only; heads stay f32)."""
+    (``heads`` keyed by layer; dense, int8 or int4 linears; heads stay f32).
+    A w8a8 tree needs ``cfg.act_quant``."""
     model = GemmaCostWiseReranker(cfg, tokenizer, device=device, dtype=dtype, **scorer_kwargs)
     return model.load_tree_(params_np)
 
 
-_EXACT = ("w_q", "w_p", "scale")  # int8 bytes and f32 scales keep their dtype
 
 
 def causal_lm_params_from_jax(params_np: Dict[str, Any], device, dtype: torch.dtype) -> Dict[str, Any]:

@@ -449,10 +449,10 @@ class TorchCausalLM:
         spec_ngram: int = 2,
         device="cuda",
     ) -> None:
-        """Load a local Qwen2 checkpoint (``quant``: "", "int8" or "int4";
-        int4 trees are fused, ``quant.fuse_decode_tree``) onto ``device``:
-        the card unless the caller asks for the CPU; without a card it
-        raises."""
+        """Load a local Qwen2 checkpoint (``quant``: "", "int8", "w8a8",
+        "int4" or "w4a8"; w8a8 and w4a8 set ``cfg.act_quant``; int4 and w4a8
+        trees are fused, ``quant.fuse_decode_tree``) onto ``device``: the
+        card unless the caller asks for the CPU; without a card it raises."""
         from transformers import AutoTokenizer
 
         from .hf_loader import load_decoder_params, load_hf_config
@@ -463,9 +463,9 @@ class TorchCausalLM:
             raise FileNotFoundError(f"local LLM: {model_dir!r} is not a local model directory")
         device = resolve_device(device)
         hf = load_hf_config(model_dir)
-        cfg = qwen2_config_from_hf(hf)
+        cfg = qwen2_config_from_hf(hf, act_quant=quant in ("w8a8", "w4a8"))
         params = load_decoder_params(model_dir, cfg.num_hidden_layers, dtype=dtype, quant=quant, device=device)
-        if quant == "int4":
+        if quant in ("int4", "w4a8"):
             params = fuse_decode_tree(params)
         tokenizer = AutoTokenizer.from_pretrained(model_dir, trust_remote_code=True)
         self._setup(cfg, params, tokenizer, eos_ids_of(model_dir, hf, tokenizer), max_new_tokens, buckets,

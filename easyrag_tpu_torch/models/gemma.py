@@ -27,12 +27,20 @@ import torch
 from torch import nn
 
 from ..devices import resolve_device
-from .layers import DecoderConfig, DecoderLayer, embed, init_random_, rms_norm, rope_tables
+from .layers import (
+    DecoderConfig,
+    DecoderLayer,
+    embed,
+    init_random_,
+    load_tree_,
+    rms_norm,
+    rope_tables,
+)
 
 PROMPT = "Predict whether passage B contains an answer to query A."
 
 
-def gemma_config_from_hf(hf: Dict[str, Any]) -> DecoderConfig:
+def gemma_config_from_hf(hf: Dict[str, Any], act_quant: bool = False) -> DecoderConfig:
     return DecoderConfig(
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
@@ -46,6 +54,7 @@ def gemma_config_from_hf(hf: Dict[str, Any]) -> DecoderConfig:
         gemma=True,
         attn_logit_softcapping=hf.get("attn_logit_softcapping", 0.0) or 0.0,
         query_pre_attn_scalar=hf.get("query_pre_attn_scalar", 0.0) or 0.0,
+        act_quant=act_quant,
     )
 
 
@@ -136,36 +145,11 @@ class GemmaCostWiseReranker(nn.Module):
         layers ``start_layer..num_layers``."""
         return init_random_(self, generator, start_layer, std)
 
-    @torch.no_grad()
+
     def load_tree_(self, params: Dict[str, Any]) -> "GemmaCostWiseReranker":
-        """Copy a JAX-layout tree (``easyrag_tpu.models.layers.init_params``
-        plus ``heads``, layer -> ``[1, hidden]``; numpy or torch leaves) into
-        the module. Only dense weights are ported."""
-
-        def put(param: torch.Tensor, leaf) -> None:
-            t = leaf if torch.is_tensor(leaf) else torch.from_numpy(np.array(leaf, dtype=np.float32))
-            param.copy_(t.reshape(param.shape))
-
-        def dense(p: Dict[str, Any]):
-            if set(p) != {"w"}:
-                raise NotImplementedError(
-                    f"linear with {sorted(p)}: biases and quantized weights are not ported (ROADMAP Queue 1, item 4)"
-                )
-            return p["w"]
-
-        put(self.embed, params["embed"])
-        put(self.final_norm, params["final_norm"])
-        for layer, p in zip(self.layers, params["layers"], strict=True):
-            for name in ("input_norm", "post_attn_norm", "pre_mlp_norm", "post_mlp_norm"):
-                put(getattr(layer, name), p[name])
-            for name in ("q", "k", "v", "o"):
-                put(getattr(layer, name), dense(p["attn"][name]))
-            for name in ("gate", "up", "down"):
-                put(getattr(layer, name), dense(p["mlp"][name]))
-        self.heads.zero_()
-        for layer_idx, w in params["heads"].items():
-            put(self.heads[int(layer_idx)], w)
-        return self
+        """Copy a JAX-layout tree into the module (``layers.load_tree_``:
+        dense, int8 or int4 linears, a dense or int8 embedding table)."""
+        return load_tree_(self, params, ("input_norm", "post_attn_norm", "pre_mlp_norm", "post_mlp_norm"))
 
     # -- tokenization (mirrors get_inputs_v2_5, rerankers.py:203-249) ---------
 
@@ -220,8 +204,8 @@ class GemmaCostWiseReranker(nn.Module):
         """Score one batch: ``(scores[B], cutoff_layer)``. ``judge`` is
         accepted for ``LLMRerank`` and ignored: there is no early exit."""
         ids_np, mask_np, qlens_np, plens_np = self.build_inputs(pairs)
-        dev = self.embed.device
-        hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(dev))
+        dev = self.final_norm.device
+        hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(dev), self.final_norm.dtype)
         mask = torch.from_numpy(mask_np).to(dev)
         qlens, plens = torch.from_numpy(qlens_np).to(dev), torch.from_numpy(plens_np).to(dev)
         seq_lens = mask_np.sum(axis=1)
@@ -243,17 +227,18 @@ def load_gemma_reranker(model_dir: str, quant: str = "", device="cuda", dtype: t
                         **scorer_kwargs) -> GemmaCostWiseReranker:
     """A bge-reranker-v2.5-gemma2-lightweight checkpoint directory ->
     :class:`GemmaCostWiseReranker` on ``device`` (``start_layer`` and
-    ``layer_sep`` from ``config.json``; the tokenizer pads on the right)."""
+    ``layer_sep`` from ``config.json``; the tokenizer pads on the right).
+    ``quant``: "", "int8", "w8a8", "int4" or "w4a8", as
+    ``hf_loader.load_decoder_params`` takes it; JAX's loader sets
+    ``act_quant`` for w8a8 only, and so does this one."""
     from transformers import AutoTokenizer
 
     from .hf_loader import load_decoder_params, load_hf_config
 
-    if quant:
-        raise NotImplementedError(f"quant={quant!r}: quantized reranker weights are ROADMAP Queue 1, item 4")
     hf = load_hf_config(model_dir)
-    cfg = gemma_config_from_hf(hf)
+    cfg = gemma_config_from_hf(hf, act_quant=quant == "w8a8")
     params = load_decoder_params(
-        model_dir, cfg.num_hidden_layers, dtype=dtype, device=resolve_device(device),
+        model_dir, cfg.num_hidden_layers, dtype=dtype, quant=quant, device=resolve_device(device),
         start_layer=hf.get("start_layer", 8), gemma=True, head_layer_sep=hf.get("layer_sep", 1),
     )
     tok = AutoTokenizer.from_pretrained(model_dir, trust_remote_code=True)

@@ -31,9 +31,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..devices import resolve_device
+from .layers import QUANTS
 from .quant import quantize_linear_int4, quantize_linear_int8
-
-QUANTS = ("", "int8", "int4")
 
 _NORM_MAP = {
     "input_layernorm": "input_norm",
@@ -90,37 +89,64 @@ def load_decoder_params(
 ) -> Dict[str, Any]:
     """Stream a checkpoint's safetensors into the decoder tree.
 
-    ``quant="int8"`` or ``"int4"`` stores every attention/MLP projection and
-    an untied ``lm_head`` quantized per output channel; ``"int4"`` also
-    stores the embedding table int8 (per-row scales). Norms and biases stay
-    in ``dtype``; layerwise score heads are f32 ``[1, hidden]`` under
-    ``heads``, keyed by layer. The tree lands on ``device``: the card unless
-    the caller asks for the CPU."""
-    if quant in ("w8a8", "w4a8"):
-        raise NotImplementedError(f"quant={quant!r}: activation quantization is ROADMAP Queue 1, item 4")
+    ``quant="int8"`` or ``"w8a8"`` stores every attention/MLP projection and
+    an untied ``lm_head`` as int8 per output channel, ``"int4"`` or
+    ``"w4a8"`` as nibble-packed int4 with an int8 embedding table (per-row
+    scales); w8a8 and w4a8 store the same leaves as int8 and int4, and their
+    activations quantize at run time (``DecoderConfig.act_quant``, set by
+    the caller). Norms and biases stay in ``dtype``; layerwise score heads
+    are f32 ``[1, hidden]`` under ``heads``, keyed by layer. The tree lands
+    on ``device``: the card unless the caller asks for the CPU."""
     if quant not in QUANTS:
         raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
-    device = resolve_device(device)
+    return _tree(_iter_safetensors(model_dir), num_layers, dtype, quant, resolve_device(device), start_layer, gemma,
+                 head_layer_sep)
+
+
+def params_from_state_dict(
+    state_dict: Dict[str, Any],
+    num_layers: int,
+    start_layer: Optional[int] = None,
+    gemma: bool = False,
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+) -> Dict[str, Any]:
+    """In-memory form of :func:`load_decoder_params` for tests and
+    conversions (JAX's ``hf_loader.params_from_state_dict``): the same names,
+    dense leaves in ``dtype`` and a plain ``lm_head`` tensor, on ``device``
+    (the card unless the caller asks for the CPU). Leaves may be tensors or
+    numpy arrays."""
+    items = ((name, torch.as_tensor(t)) for name, t in state_dict.items())
+    params = _tree(items, num_layers, dtype, "", resolve_device(device), start_layer, gemma, 1)
+    if "lm_head" in params:
+        params["lm_head"] = params["lm_head"]["w"]
+    return params
+
+
+def _tree(named, num_layers, dtype, quant, device, start_layer, gemma, head_layer_sep) -> Dict[str, Any]:
+    """``(name, tensor)`` pairs in HF names -> the decoder tree (the mapping
+    of the module docstring), each tensor quantized or cast as it arrives."""
     layers = [{"attn": {}, "mlp": {}} for _ in range(num_layers)]
     params: Dict[str, Any] = {"layers": layers}
     heads: Dict[int, torch.Tensor] = {}
     norm_map = _GEMMA_NORM_MAP if gemma else _NORM_MAP
+    int4 = quant in ("int4", "w4a8")
 
     def put(t: torch.Tensor) -> torch.Tensor:
         return t.to(device=device, dtype=dtype)
 
     def put_linear(t: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if quant == "int8":
+        if quant in ("int8", "w8a8"):
             return quantize_linear_int8(t.to(device).float())
-        if quant == "int4":
+        if int4:
             return quantize_linear_int4(t.to(device).float())
         return {"w": put(t)}
 
-    for raw_name, tensor in _iter_safetensors(model_dir):
+    for raw_name, tensor in named:
         name = raw_name[6:] if raw_name.startswith("model.") else raw_name
         parts = name.split(".")
         if name == "embed_tokens.weight":
-            params["embed"] = quantize_linear_int8(tensor.to(device).float()) if quant == "int4" else put(tensor)
+            params["embed"] = quantize_linear_int8(tensor.to(device).float()) if int4 else put(tensor)
         elif name == "norm.weight":
             params["final_norm"] = put(tensor)
         elif parts[0] == "lm_head":
@@ -150,11 +176,28 @@ def load_decoder_params(
 
 def load_qwen2_embedder(model_dir: str, dtype: torch.dtype = torch.bfloat16, quant: str = "", device="cuda"):
     """gte-Qwen2 checkpoint -> ``(DecoderConfig, params)`` on ``device`` (the
-    card unless the caller asks for the CPU). ``quant``: "", "int8" or
-    "int4" (with an int8 embedding table); "w8a8" and "w4a8" raise
-    (activation quantization, ROADMAP Queue 1, item 4)."""
+    card unless the caller asks for the CPU). ``quant``: "", "int8", "w8a8",
+    "int4" or "w4a8" (int4 with an int8 embedding table); w8a8 and w4a8 set
+    ``cfg.act_quant``."""
     from .qwen2 import qwen2_config_from_hf
 
     device = resolve_device(device)
-    cfg = qwen2_config_from_hf(load_hf_config(model_dir))
+    cfg = qwen2_config_from_hf(load_hf_config(model_dir), act_quant=quant in ("w8a8", "w4a8"))
     return cfg, load_decoder_params(model_dir, cfg.num_hidden_layers, dtype=dtype, quant=quant, device=device)
+
+
+def load_minicpm_reranker(model_dir: str, dtype: torch.dtype = torch.bfloat16, quant: str = "", device="cuda"):
+    """bge-reranker-v2-minicpm-layerwise checkpoint -> ``(cfg, params,
+    start_layer)`` (JAX's ``hf_loader.load_minicpm_reranker``):
+    ``start_layer`` from ``config.json`` (default 8), the layerwise heads
+    under ``heads``, ``quant`` as :func:`load_decoder_params` takes it (w8a8
+    and w4a8 set ``cfg.act_quant``), on ``device``."""
+    from .minicpm import minicpm_config_from_hf
+
+    device = resolve_device(device)
+    hf = load_hf_config(model_dir)
+    cfg = minicpm_config_from_hf(hf, act_quant=quant in ("w8a8", "w4a8"))
+    start_layer = hf.get("start_layer", 8)
+    params = load_decoder_params(model_dir, cfg.num_hidden_layers, dtype=dtype, quant=quant, device=device,
+                                 start_layer=start_layer)
+    return cfg, params, start_layer

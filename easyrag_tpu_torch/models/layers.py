@@ -10,21 +10,26 @@ softcapped (Gemma2) attention takes right padding only, given as no range.
 
 Two forms share these pieces:
 
-* :class:`DecoderLayer`, the rerankers' module (dense weights, batch-shared
-  positions). Attention goes through the K4 port ``ops/flash_softcap.py``
-  for every softcapped config, the K1 port ``ops/flash64.py`` for
-  head_dim-64 multi-head attention, the einsum formulation otherwise;
+* :class:`DecoderLayer`, the rerankers' module (batch-shared positions).
+  Attention goes through the K4 port ``ops/flash_softcap.py`` for every
+  softcapped config, the K1 port ``ops/flash64.py`` for head_dim-64
+  multi-head attention, the einsum formulation otherwise;
 * the functions over a JAX-layout tree of dicts (:func:`linear`,
   :func:`mlp`, :func:`embed`, :func:`qkv_proj`, :func:`mlp_residual`, and the
-  embedder's :func:`attention`, :func:`decoder_layer`, :func:`forward_hidden`),
-  where a linear is dense (``w``), int8 (``w_q``/``scale``) or int4
-  (``w_p``/``scale``), each with an optional bias ``b``. The generator's
-  prefill (``models/decode.py``) and the gte-Qwen2 embedder
+  embedder's :func:`attention`, :func:`decoder_layer`, :func:`forward_hidden`).
+  The generator's prefill (``models/decode.py``) and the gte-Qwen2 embedder
   (``models/qwen2.py``) share the block's projections and MLP.
+
+In both forms a linear is a leaf: dense (``w``), int8 (``w_q``/``scale``) or
+int4 (``w_p``/``scale``), each with an optional bias ``b``, computed by the
+one :func:`linear`. With ``DecoderConfig.act_quant`` (w8a8, w4a8) every
+projection quantizes its activations per token to int8 and contracts s8 x s8
+exactly in s32 (``torch._int_mm``), as JAX's ``layers._linear(..., a8)``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -37,7 +42,7 @@ from ..ops import int4_matvec
 from ..ops.flash64 import apply_rope, flash64_attention, masked_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_softcap import flash_softcap_attention
-from .quant import unpack_int4
+from .quant import quantize_linear_int4, quantize_linear_int8, unpack_int4
 
 
 @dataclass(frozen=True)
@@ -62,6 +67,9 @@ class DecoderConfig:
     gemma: bool = False
     attn_logit_softcapping: float = 0.0
     query_pre_attn_scalar: float = 0.0
+    # w8a8 / w4a8: quantize activations per token to int8 at every
+    # projection (int8 or int4 weights; linear's a8)
+    act_quant: bool = False
 
     @property
     def hd(self) -> int:
@@ -108,8 +116,32 @@ def rope_tables(
     return torch.cos(angles), torch.sin(angles)
 
 
-def _weight(n_out: int, n_in: int, **kw) -> nn.Parameter:
-    return nn.Parameter(torch.empty(n_out, n_in, **kw), requires_grad=False)
+PROJECTIONS = ("q", "k", "v", "o", "gate", "up", "down")
+_EXACT = ("w_q", "w_p", "scale")  # int8/int4 bytes and f32 scales keep their dtype
+
+
+def to_tensor(value) -> torch.Tensor:
+    """A tree leaf (a tensor, or a numpy array such as JAX's) as a tensor:
+    integer arrays keep their dtype, float ones (bf16 included) become f32."""
+    if torch.is_tensor(value):
+        return value
+    a = np.asarray(value)
+    return torch.from_numpy(np.array(a if a.dtype.kind in "iu" else a.astype(np.float32)))
+
+
+def leaf(p: Dict[str, Any], device=None, dtype=None) -> nn.ParameterDict:
+    """A linear leaf (``w``, ``w_q``/``scale`` or ``w_p``/``scale``, maybe
+    ``b``; tensors or numpy arrays) as a module's parameters on ``device``:
+    quantized bytes and scales keep their dtypes, ``w`` and ``b`` take
+    ``dtype``."""
+    return nn.ParameterDict({
+        k: nn.Parameter(to_tensor(v).to(device=device, dtype=None if k in _EXACT else dtype), requires_grad=False)
+        for k, v in p.items()
+    })
+
+
+def _weight(n_out: int, n_in: int, **kw) -> nn.ParameterDict:
+    return leaf({"w": torch.empty(n_out, n_in, **kw)})
 
 
 @torch.no_grad()
@@ -124,17 +156,79 @@ def init_random_(model: nn.Module, generator: torch.Generator, start_layer: int,
 
     fill(model.embed)
     for layer in model.layers:
-        for w in (layer.q, layer.k, layer.v, layer.o, layer.gate, layer.up, layer.down):
-            fill(w)
+        for name in PROJECTIONS:
+            fill(getattr(layer, name)["w"])
     model.heads.zero_()
     fill(model.heads[start_layer:])
+    return model
+
+
+QUANTS = ("", "int8", "w8a8", "int4", "w4a8")
+
+
+@torch.no_grad()
+def quantize_layers_(model: nn.Module, quant: str) -> nn.Module:
+    """Quantize every projection of a reranker module's ``layers`` in place
+    (``quant``: int8 or w8a8 -> int8 leaves, int4 or w4a8 -> int4 leaves,
+    biases kept) and set ``cfg.act_quant`` for w8a8 and w4a8, as the JAX
+    package's loader does with ``quant``. Embeddings, norms and score heads
+    stay as they are. Works on any device (``models/quant.py``)."""
+    if quant not in QUANTS:
+        raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
+    if not quant:
+        return model
+    quantize = quantize_linear_int4 if quant in ("int4", "w4a8") else quantize_linear_int8
+    cfg = dataclasses.replace(model.cfg, act_quant=quant in ("w8a8", "w4a8"))
+    for layer in model.layers:
+        for name in PROJECTIONS:
+            p = getattr(layer, name)
+            if "w" not in p:
+                raise ValueError(f"projection {name} is already quantized")
+            q = quantize(p["w"])
+            if "b" in p:
+                q["b"] = p["b"]
+            setattr(layer, name, leaf(q))
+        layer.cfg = cfg
+    model.cfg = cfg
+    return model
+
+
+@torch.no_grad()
+def load_tree_(model: nn.Module, params: Dict[str, Any], norms: Tuple[str, ...]) -> nn.Module:
+    """Copy a JAX-layout tree (``easyrag_tpu.models.layers.init_params`` plus
+    ``heads``, layer -> ``[1, hidden]``; numpy or torch leaves) into a
+    reranker module (``embed``, ``final_norm``, ``layers``, ``heads``).
+    ``norms`` names each layer's norms. A linear may be dense, int8 or int4
+    (any bias kept) and the embedding table dense or int8: quantized bytes
+    and scales keep their dtypes, everything else takes the module's dtype;
+    heads stay f32. A w8a8 or w4a8 tree needs ``cfg.act_quant``."""
+    dev, dt = model.final_norm.device, model.final_norm.dtype
+
+    def put(param: torch.Tensor, value) -> None:
+        param.copy_(to_tensor(value).reshape(param.shape))
+
+    if isinstance(params["embed"], dict):  # int8 table (int4/w4a8 trees)
+        del model.embed
+        model.embed = leaf(params["embed"], dev, dt)
+    else:
+        put(model.embed, params["embed"])
+    put(model.final_norm, params["final_norm"])
+    for layer, p in zip(model.layers, params["layers"], strict=True):
+        for name in norms:
+            put(getattr(layer, name), p[name])
+        for name in PROJECTIONS:
+            setattr(layer, name, leaf(p["attn" if name in ("q", "k", "v", "o") else "mlp"][name], dev, dt))
+    model.heads.zero_()
+    for layer_idx, w in params["heads"].items():
+        put(model.heads[int(layer_idx)], w)
     return model
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm attention + SiLU MLP block with MiniCPM's residual scale, or
     (``cfg.gemma``) Gemma2's block: norms before and after both attention and
-    the GeGLU MLP, plain residuals."""
+    the GeGLU MLP, plain residuals. Each projection is a leaf
+    (:func:`leaf`) computed by :func:`linear` with ``cfg.act_quant``."""
 
     def __init__(self, cfg: DecoderConfig, device=None, dtype=None) -> None:
         super().__init__()
@@ -159,7 +253,8 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
-        q, k, v = F.linear(x, self.q), F.linear(x, self.k), F.linear(x, self.v)
+        a8 = cfg.act_quant
+        q, k, v = linear(x, self.q, a8), linear(x, self.k, a8), linear(x, self.v, a8)
         scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else hd ** -0.5
         if cfg.attn_logit_softcapping:
             # K4 has no mask input: causality alone keeps right-padded keys
@@ -181,12 +276,13 @@ class DecoderLayer(nn.Module):
                 kh = kh.repeat_interleave(nh // nkv, dim=2)
                 vh = vh.repeat_interleave(nh // nkv, dim=2)
             out = masked_attention(qh, kh, vh, kv_start, kv_end, scale).reshape(b, s, nh * hd)
-        return F.linear(out, self.o)
+        return linear(out, self.o, a8)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        gate = F.linear(x, self.gate)
+        a8 = self.cfg.act_quant
+        gate = linear(x, self.gate, a8)
         act = F.gelu(gate, approximate="tanh") if self.cfg.gemma else F.silu(gate)
-        return F.linear(act * F.linear(x, self.up), self.down)
+        return linear(act * linear(x, self.up, a8), self.down, a8)
 
     def forward(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
         eps = self.cfg.rms_norm_eps
@@ -202,24 +298,93 @@ class DecoderLayer(nn.Module):
         return x + h * r
 
 
-def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``x @ W.T (+ b)`` for a dense, int8 or int4 linear of a JAX-layout tree.
+# easyrag_tpu/ops/int4_matvec.py's shape gate (its VMEM budget and block
+# sizes): JAX's w4a8 quantizes the activations exactly where this says its
+# TPU kernel does not apply, so the port decides a8 by it, not by K2's gate
+_TPU_I4_VMEM_BUDGET = 12 * 2**20
+_TPU_I4_MAX_ROWS = 64
 
-    Int4 with at most ``int4_matvec.MAX_ROWS`` rows goes to K2, whose math
-    is the TPU kernel's (f32 sums, f32 rescale, one cast). More rows unpack
+
+def tpu_int4_kernel_shape(rows: int, n_out: int, half_in: int) -> bool:
+    """JAX's ``ops/int4_matvec.py::supported``: at most 64 rows, ``I/2`` and
+    ``O`` multiples of 128, and an output block of 1024, 512, 256 or 128
+    channels that divides ``O`` and fits the VMEM budget."""
+    if not (0 < rows <= _TPU_I4_MAX_ROWS and half_in % 128 == 0 and n_out % 128 == 0):
+        return False
+    return any(n_out % bo == 0 and bo * half_in * 6 <= _TPU_I4_VMEM_BUDGET for bo in (1024, 512, 256, 128))
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a @ w.T`` of int8 ``a`` ``[M, K]`` and ``w`` ``[N, K]``
+    through ``torch._int_mm``. Its CUDA form wants more than 16 rows and
+    widths that are multiples of 8: ``a`` and ``w`` are zero-padded to them
+    (as ``index/dense.py`` pads), which adds nothing to any sum."""
+    m, k = a.shape
+    n = w.shape[0]
+    pad_k, pad_n, pad_m = -k % 8, -n % 8, max(17 - m, 0)
+    if pad_k or pad_n:
+        w = F.pad(w, (0, pad_k, 0, pad_n))
+    if pad_k or pad_m:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    y = torch._int_mm(a, w.t())
+    return y[:m, :n] if pad_m or pad_n else y
+
+
+def quantize_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 quantization of the last axis: ``(x_q,
+    xs)`` with ``xs = where(amax > 0, amax, 1) / 127`` in f32 (``[..., 1]``)
+    and ``x_q = round(x / xs)``. JAX's compiled ``_linear`` takes the
+    ``/ 127`` as a product with the f32 reciprocal, so this does too."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    xs = torch.where(amax > 0, amax, torch.ones_like(amax)) * (1.0 / 127.0)
+    return torch.round(xf / xs).to(torch.int8), xs
+
+
+def a8_product(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """w8a8's product: ``x`` quantized per token (:func:`quantize_tokens`),
+    the exact s32 contraction with int8 ``w8`` ``[O, I]``
+    (:func:`int8_matmul`), then ``(y * xs * scale)`` in f32 in that order,
+    cast to ``x``'s dtype. A zero row gives zeros."""
+    x_q, xs = quantize_tokens(x)
+    y = int8_matmul(x_q.reshape(-1, x.shape[-1]), w8).reshape(*x.shape[:-1], w8.shape[0])
+    return rescale_s32(y, xs, scale, x.dtype)
+
+
+def rescale_s32(y: torch.Tensor, xs: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``(y * xs * scale)`` in f32, in that order, cast to ``dtype``: the
+    s32 product back to the activations' scale."""
+    return y.float().mul_(xs).mul_(scale.float()).to(dtype)
+
+
+def linear(x: torch.Tensor, p: Dict[str, torch.Tensor], a8: bool = False) -> torch.Tensor:
+    """``x @ W.T (+ b)`` for a dense, int8 or int4 leaf (JAX's
+    ``layers._linear``).
+
+    ``a8`` (w8a8, w4a8): int8 weights, and int4 ones wherever JAX's TPU
+    kernel gate (:func:`tpu_int4_kernel_shape`) says no, take
+    :func:`a8_product` (the unpacked nibbles are the s8 operand). Otherwise
+    int4 with at most ``int4_matvec.MAX_ROWS`` rows goes to K2, whose math
+    is the TPU kernel's (f32 sums, f32 rescale, one cast); more rows unpack
     the nibbles and take one large ``torch.matmul`` with the XLA formula
     ``(x @ w.T) * scale`` in x's dtype, as the JAX package leaves prefill to
-    XLA; in f32 the two agree to rounding. Int8 is the XLA formula too."""
+    XLA; in f32 the two agree to rounding. Int8 without ``a8`` is the XLA
+    formula too."""
     if "w_p" in p:
         rows = x.numel() // x.shape[-1]
-        n_out = p["w_p"].shape[0]
-        if rows <= int4_matvec.MAX_ROWS:
+        n_out, half_in = p["w_p"].shape
+        if a8 and not tpu_int4_kernel_shape(rows, n_out, half_in):
+            y = a8_product(x, unpack_int4(p["w_p"]), p["scale"])
+        elif rows <= int4_matvec.MAX_ROWS:
             y2 = int4_matvec.int4_matvec(x.reshape(rows, x.shape[-1]).contiguous(), p["w_p"], p["scale"])
             y = y2.reshape(*x.shape[:-1], n_out)
         else:
             y = (x @ unpack_int4(p["w_p"]).t().to(x.dtype)) * p["scale"].to(x.dtype)
     elif "w_q" in p:
-        y = (x @ p["w_q"].t().to(x.dtype)) * p["scale"].to(x.dtype)
+        if a8:
+            y = a8_product(x, p["w_q"], p["scale"])
+        else:
+            y = (x @ p["w_q"].t().to(x.dtype)) * p["scale"].to(x.dtype)
     else:
         y = x @ p["w"].t()
     if "b" in p:
@@ -227,19 +392,19 @@ def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return y
 
 
-def mlp(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Dict[str, Any], x: torch.Tensor, a8: bool = False) -> torch.Tensor:
     """SiLU MLP of a tree layer; ``gateup`` is the fused gate+up, split at
     its midpoint (``quant.fuse_decode_tree`` fuses equal widths only). The
     activation and the product are taken in place in the gate's fresh
     buffer: at the embedder's largest batch each ``[B, S, intermediate]``
     buffer is ~10 GB."""
     if "gateup" in p:
-        y = linear(x, p["gateup"])
+        y = linear(x, p["gateup"], a8)
         inter = y.shape[-1] // 2
         gate, up = y[..., :inter], y[..., inter:]
     else:
-        gate, up = linear(x, p["gate"]), linear(x, p["up"])
-    return linear(F.silu(gate, inplace=True).mul_(up), p["down"])
+        gate, up = linear(x, p["gate"], a8), linear(x, p["up"], a8)
+    return linear(F.silu(gate, inplace=True).mul_(up), p["down"], a8)
 
 
 def qkv_proj(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
@@ -247,8 +412,9 @@ def qkv_proj(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
     ``attn``; ``qkv`` is the fused int4 projection (one K2 launch)."""
     b, s, _ = h.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    a8 = cfg.act_quant
     if "qkv" in p:
-        y = linear(h, p["qkv"])
+        y = linear(h, p["qkv"], a8)
         qd, kd = nh * hd, nkv * hd
         return (
             y[..., :qd].reshape(b, s, nh, hd),
@@ -256,9 +422,9 @@ def qkv_proj(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
             y[..., qd + kd :].reshape(b, s, nkv, hd),
         )
     return (
-        linear(h, p["q"]).reshape(b, s, nh, hd),
-        linear(h, p["k"]).reshape(b, s, nkv, hd),
-        linear(h, p["v"]).reshape(b, s, nkv, hd),
+        linear(h, p["q"], a8).reshape(b, s, nh, hd),
+        linear(h, p["k"], a8).reshape(b, s, nkv, hd),
+        linear(h, p["v"], a8).reshape(b, s, nkv, hd),
     )
 
 
@@ -269,9 +435,9 @@ def mlp_residual(
     residual, post-norm SiLU MLP and residual (MiniCPM's residual scale).
     ``norm(x, weight, eps)`` is the post-norm (the decoder's verify block
     passes one that reduces position by position)."""
-    r = cfg.residual_scale
-    x = x + linear(attn_out, p["attn"]["o"]) * r
-    return x + mlp(p["mlp"], norm(x, p["post_norm"], cfg.rms_norm_eps)) * r
+    r, a8 = cfg.residual_scale, cfg.act_quant
+    x = x + linear(attn_out, p["attn"]["o"], a8) * r
+    return x + mlp(p["mlp"], norm(x, p["post_norm"], cfg.rms_norm_eps), a8) * r
 
 
 def attention(
@@ -350,9 +516,10 @@ def embed(
     """Rows of the embedding table, times ``scale_emb`` (Gemma: times
     ``sqrt(hidden)`` rounded to the rows' dtype first, 59.75 in bf16 at
     hidden 3584, as JAX rounds it). An int8 table (``{"w_q", "scale"}``,
-    per-row scales) is dequantized on the gathered rows into ``dtype``."""
+    per-row scales; a dict or a module's ``ParameterDict``) is dequantized on
+    the gathered rows into ``dtype``."""
     ids = input_ids.long()
-    if isinstance(table, dict):
+    if not torch.is_tensor(table):
         rows = F.embedding(ids, table["w_q"]).to(dtype)
         h = rows * table["scale"][ids].to(dtype)[..., None]
     else:

@@ -8,6 +8,9 @@ per output channel, work on CPU and CUDA tensors alike, and give the same
 bytes as the JAX package's numpy versions on the same f32 input: division,
 ``round`` (half to even, as ``np.rint``) and the clip are exact in both.
 
+The same holds on the card: every division is tensor by tensor, which
+PyTorch's CUDA kernels take as an IEEE division.
+
 Int4 packs two nibbles per byte in the *halves* layout: byte ``w_p[o, i]``
 holds column ``i`` in its low nibble and column ``i + I/2`` in its high one.
 """
@@ -23,7 +26,10 @@ from ..ops import int4_matvec
 
 def _scale_and_round(w: torch.Tensor, qmax: int):
     w = w.float()
-    scale = w.abs().amax(dim=1) / float(qmax)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which rounds some scales one ulp away from the CPU's
+    amax = w.abs().amax(dim=1)
+    scale = amax / torch.full_like(amax, float(qmax))
     scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(w / scale[:, None]), -qmax, qmax).to(torch.int8)
     return q, scale

@@ -33,8 +33,9 @@ QUERY_INSTRUCT = (
 SEQ_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
 
-def qwen2_config_from_hf(hf: Dict[str, Any]) -> DecoderConfig:
-    """``config.json`` of a Qwen2 checkpoint -> :class:`DecoderConfig`."""
+def qwen2_config_from_hf(hf: Dict[str, Any], act_quant: bool = False) -> DecoderConfig:
+    """``config.json`` of a Qwen2 checkpoint -> :class:`DecoderConfig`
+    (``act_quant`` for a w8a8 or w4a8 tree)."""
     return DecoderConfig(
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
@@ -45,6 +46,7 @@ def qwen2_config_from_hf(hf: Dict[str, Any]) -> DecoderConfig:
         rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
         rope_theta=hf.get("rope_theta", 10000.0),
         attention_bias=True,  # Qwen2 uses QKV bias
+        act_quant=act_quant,
     )
 
 

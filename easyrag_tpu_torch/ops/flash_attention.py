@@ -13,9 +13,10 @@ reads KV head ``h // (NH // NKV)``. Logits and softmax are f32; masked logits
 are ``finfo(f32).min``, so every output is finite, pad rows included.
 
 CUDA tensors go through ``csrc/flash_attention.cu`` (bf16, every head_dim
-that is a multiple of 64 up to 512, as JAX sends any multiple of 64 to the
-stock kernel: the ``wgmma``/TMA body of ``csrc/attention_sm90.cuh``) or
-raise; CPU tensors go through :func:`flash_attention_plain`.
+that is a multiple of 64, as JAX sends any multiple of 64 to the stock
+kernel: the ``wgmma``/TMA body of ``csrc/attention_sm90.cuh`` up to 512, and
+past it a kernel that streams Q and K through shared memory in 64-dim
+panels) or raise; CPU tensors go through :func:`flash_attention_plain`.
 """
 
 from __future__ import annotations
@@ -26,9 +27,6 @@ import torch
 
 from .. import _build
 from .flash64 import masked_attention
-
-MAX_HEAD_DIM = 512  # past this the kernel raises (ROADMAP Queue 3)
-HEAD_DIMS = tuple(range(64, MAX_HEAD_DIM + 1, 64))  # the kernel's head dims: multiples of 64 up to 512
 
 #: kernel launches made by :func:`flash_attention`
 launches = 0
@@ -95,11 +93,8 @@ def flash_attention(
         return flash_attention_plain(q, k, v, kv_start, kv_end, sm_scale, num_kv_heads)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention kernel takes head_dim a multiple of 64 up to {MAX_HEAD_DIM}, got {hd} "
-            "(larger head dims: ROADMAP Queue 3)"
-        )
+    if hd % 64:
+        raise ValueError(f"flash_attention kernel takes head_dim a multiple of 64, got {hd}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     if kv_start.dtype != torch.int32 or kv_end.dtype != torch.int32:

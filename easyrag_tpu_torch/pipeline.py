@@ -57,8 +57,6 @@ def _check_supported(cfg: EasyRAGConfig, reranker, embed_model) -> None:
         (bool(cfg.index_artifact_path), "index_artifact_path: the corpus artifact is ROADMAP Queue 1, item 7"),
         (bool(cfg.local_llm_name and cfg.tpu.local_llm_answer and cfg.tpu.local_llm_continuous),
          "tpu.local_llm_continuous: the continuous-batching decode pool is ROADMAP Queue 1, item 9"),
-        (bool(cfg.local_llm_name) and cfg.tpu.local_llm_quant in ("w8a8", "w4a8"),
-         f"tpu.local_llm_quant={cfg.tpu.local_llm_quant}: activation quantization is ROADMAP Queue 1, item 4"),
         (bool(cfg.compress_method), "compress_method: context compression is ROADMAP Queue 1, item 7"),
         (bool(cfg.tpu.shard_index or cfg.tpu.mesh_shape), "sharded indexes are ROADMAP Queue 1, item 13"),
         (reranker is None and cfg.use_reranker != 0,

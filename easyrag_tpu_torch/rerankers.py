@@ -16,7 +16,9 @@ of ``embed_bs``, replicating ``src/easyrag/custom/rerankers.py:298-376``:
   + keep/n) of the full-depth work with full-depth ordering of the
   survivors. Opt-in: the final top-``top_n`` can differ from full-depth
   reranking iff a true top-n pair ranks below ``cascade_keep`` at the
-  judge layer (tune ``tpu.cascade_keep``; validate on real weights)
+  judge layer (tune ``tpu.cascade_keep``; validate on real weights).
+  With ``cascade_carry`` and a scorer that has ``score_pairs_carry``,
+  stage 2 resumes from stage 1's hidden states at the judge layer
 * the retrieval score is preserved in ``metadata["retrieval_score"]``
 * final ordering: ``sorted(key=-score if score else 0)[:top_n]``
   (``rerankers.py:371-373``; note falsy scores sort as 0, replicated)
@@ -67,8 +69,7 @@ class LLMRerank:
         self.use_efficient = use_efficient
         self.keep_retrieval_score = keep_retrieval_score
         self.cascade_keep = cascade_keep
-        if cascade_carry:
-            raise NotImplementedError("cascade_carry: resuming from carried hidden states is ROADMAP Queue 1, item 6")
+        self.cascade_carry = cascade_carry
 
     def postprocess_nodes(
         self,
@@ -204,13 +205,72 @@ class LLMRerank:
         ]
         full_cutoff = self.scorer.cutoff_layer
         j = min(self._judge_layer(), full_cutoff)
+        carry_ok = (
+            self.cascade_carry
+            and j < full_cutoff
+            and not getattr(self.scorer, "coalesce", False)
+            and hasattr(self.scorer, "score_pairs_carry")
+        )
         keep_n = min(max(self.cascade_keep, self.top_n), len(pairs))
-        s1 = self._score_at_cutoff(pairs, j, "cascade-1")
-        survivors = np.argsort(-s1, kind="stable")[:keep_n]
-        s2 = self._score_at_cutoff([pairs[i] for i in survivors], full_cutoff, "cascade-2")
+        if not carry_ok:
+            s1 = self._score_at_cutoff(pairs, j, "cascade-1")
+            survivors = np.argsort(-s1, kind="stable")[:keep_n]
+            s2 = self._score_at_cutoff([pairs[i] for i in survivors], full_cutoff, "cascade-2")
+        else:
+            s1, survivors, s2 = self._cascade_carried(pairs, j, full_cutoff, keep_n)
         final = s1 + (float(min(s2.min(), s1.min())) - 1.0 - float(s1.max()))
         final[survivors] = s2
         return final
+
+    def _cascade_carried(self, pairs, j: int, full_cutoff: int, keep_n: int):
+        """Carry variant (``tpu.cascade_carry``): stage 1 keeps each chunk's
+        post-layer-``j`` hidden states on the device; stage 2 gathers the
+        survivors' rows (one indexing op) and resumes at layer ``j`` instead
+        of re-running layers ``[0, j)``, saving ``keep x j`` layer-batches
+        per query. Scores equal the re-run path's to rounding (the scorer's
+        ``score_carried`` RoPE note)."""
+        import numpy as np
+
+        self.scorer.cutoff_layer = j
+        bsz = self.embed_bs
+        s1_parts, hiddens, masks, row_base = [], [], [], []
+        base = 0
+        for lo in range(0, len(pairs), bsz):
+            chunk = pairs[lo : lo + bsz]
+            n_real = len(chunk)
+            if n_real < bsz:
+                chunk = chunk + [chunk[-1]] * (tail_bucket(n_real, bsz) - n_real)
+            emit("reranking", {"stage": "cascade-1", "batch": lo // bsz, "pairs": n_real, "judge": False})
+            sc, carry = self.scorer.score_pairs_carry(chunk)
+            s1_parts.append(np.asarray(sc)[:n_real])
+            hiddens.append(carry["hidden"])
+            masks.append(carry["mask"])
+            row_base.append(base)
+            base += carry["hidden"].shape[0]
+        s1 = np.concatenate(s1_parts).astype(np.float32)
+        survivors = np.argsort(-s1, kind="stable")[:keep_n]
+
+        self.scorer.cutoff_layer = full_cutoff
+        s_max = max(h.shape[1] for h in hiddens)
+        pad_left = getattr(self.scorer, "padding_side", "left") != "right"
+        s2_parts = []
+        for lo in range(0, len(survivors), bsz):
+            sel = survivors[lo : lo + bsz]
+            n_real = len(sel)
+            nb = tail_bucket(n_real, bsz) if n_real < bsz else bsz
+            sel_padded = np.concatenate([sel, np.full(nb - n_real, sel[-1])])
+            flat_idx = np.array([row_base[g // bsz] + g % bsz for g in sel_padded], np.int64)
+            mask_rows = np.zeros((nb, s_max), np.int32)
+            for out_i, g in enumerate(sel_padded):
+                m = masks[g // bsz][g % bsz]
+                if pad_left:
+                    mask_rows[out_i, s_max - len(m):] = m
+                else:
+                    mask_rows[out_i, : len(m)] = m
+            emit("reranking", {"stage": "cascade-2-carried", "batch": lo // bsz, "pairs": n_real, "judge": False})
+            sc = self.scorer.score_carried(hiddens, flat_idx, mask_rows, j)
+            s2_parts.append(np.asarray(sc)[:n_real])
+        return s1, survivors, np.concatenate(s2_parts).astype(np.float32)
 
     def _score_coalesced(self, nodes: List[NodeWithScore], query: str):
         """Score through a coalescing scorer: judge protocol (if any) on the

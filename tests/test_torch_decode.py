@@ -289,7 +289,7 @@ def test_causal_lm_matches_jax(tiny_causal_checkpoint, spec):
     assert got.generate(QUERIES[0]) == want[0]
 
 
-@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+@pytest.mark.parametrize("quant", ["", "int8", "int4", "w8a8", "w4a8"])
 def test_loader_matches_jax(tiny_causal_checkpoint, quant):
     ref = jh.load_decoder_params(tiny_causal_checkpoint, 2, dtype=jnp.float32, quant=quant)
     got = th.load_decoder_params(tiny_causal_checkpoint, 2, dtype=torch.float32, quant=quant, device="cpu")
@@ -313,5 +313,5 @@ def test_loader_matches_jax(tiny_causal_checkpoint, quant):
         vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=4,
         num_key_value_heads=2, rms_norm_eps=hf["rms_norm_eps"], rope_theta=hf["rope_theta"], attention_bias=True,
     )
-    with pytest.raises(NotImplementedError):
-        th.load_decoder_params(tiny_causal_checkpoint, 2, quant="w4a8", device="cpu")
+    with pytest.raises(ValueError):
+        th.load_decoder_params(tiny_causal_checkpoint, 2, quant="fp8", device="cpu")

@@ -195,14 +195,15 @@ def tiny_gte_checkpoint(tmp_path_factory):
     return str(out)
 
 
-@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+@pytest.mark.parametrize("quant", ["", "int8", "int4", "w8a8", "w4a8"])
 def test_loader_matches_jax(tiny_gte_checkpoint, quant):
     jcfg, ref = jh.load_qwen2_embedder(tiny_gte_checkpoint, dtype=jnp.float32, quant=quant)
     cfg, got = th.load_qwen2_embedder(tiny_gte_checkpoint, dtype=torch.float32, quant=quant, device="cpu")
     assert cfg.hidden_size == jcfg.hidden_size and cfg.num_key_value_heads == jcfg.num_key_value_heads
+    assert cfg.act_quant == jcfg.act_quant == (quant in ("w8a8", "w4a8"))
     ref_np = jax.tree.map(np.asarray, ref)
     assert sorted(got) == sorted(ref_np) == ["embed", "final_norm", "layers"]
-    if quant == "int4":
+    if quant in ("int4", "w4a8"):
         assert sorted(got["embed"]) == ["scale", "w_q"]
 
     def same(a, b):
@@ -217,9 +218,8 @@ def test_loader_matches_jax(tiny_gte_checkpoint, quant):
             np.testing.assert_array_equal(a.numpy(), b)
 
     same(got, ref_np)
-    for bad in ("w8a8", "w4a8"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            th.load_qwen2_embedder(tiny_gte_checkpoint, quant=bad, device="cpu")
+    with pytest.raises(ValueError):
+        th.load_qwen2_embedder(tiny_gte_checkpoint, quant="fp8", device="cpu")
 
 
 def test_load_gte_embedder_matches_jax_registry(monkeypatch, tiny_gte_checkpoint):

@@ -10,17 +10,20 @@ for the gte-Qwen2 embedder (where the port passes ``kv_start = 0, kv_end =
 length``). f32, real rows within atol 2e-5 (f32 sums in another order); every
 output, pad rows included, must be finite. Head_dim 128, and head_dim 64 and
 192 with grouped KV heads at the block sizes of JAX's fallback for head dims
-that are not multiples of 128 (``easyrag_tpu/models/layers.py:333-340``).
+that are not multiples of 128 (``easyrag_tpu/models/layers.py:333-340``),
+and head_dim 576, past the 512 where the card's kernel starts streaming Q and
+K through shared memory.
 
 CUDA (marked ``cuda``, skipped without a card): the hand-written kernel
 against the plain version in bf16 at S=1024, left and right padded, at
-head_dim 128, at head_dim 64 (GQA) and 256 with ragged rows, and at 192,
-320, 384, 448 and 512 (past 256 the kernel splits V's columns into groups).
-Each real row of one head must agree within 1.6e-2 of the row's largest
-``|plain|``: the kernel rounds the unnormalised probabilities to bf16 and
-divides at the end, the plain version rounds the normalised ones (the bound
-of the K1 tests). A head dim that is not a multiple of 64, or past 512,
-raises without a launch.
+head_dim 128, at head_dim 64 (GQA) and 256 with ragged rows, at 192, 320,
+384, 448 and 512 (past 256 the kernel splits V's columns into groups), and
+at 576, 768 and 1024 (past 512 Q and K stream through shared memory in
+64-dim panels). Each real row of one head must agree within 1.6e-2 of the
+row's largest ``|plain|``: the kernel rounds the unnormalised probabilities
+to bf16 and divides at the end, the plain version rounds the normalised ones
+(the bound of the K1 tests). A head dim that is not a multiple of 64 raises
+without a launch.
 """
 
 import numpy as np
@@ -156,10 +159,41 @@ def test_plain_matches_stock_kernel_head_dim_192(side):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_plain_matches_stock_kernel_head_dim_576(side):
+    """Head_dim 576 (past 512: the card's kernel streams Q and K through
+    shared memory) with 2 query heads on 1 KV head, as JAX sends it to the
+    stock kernel with its fallback block sizes."""
+    B, S, nh, nkv, hd = 2, 128, 2, 1, 576
+    q, k, v = _inputs(B, S, nh, nkv, seed=40 + len(side), hd=hd)
+    lengths = np.array([S, 45])
+    pos = np.arange(S)[None, :]
+    if side == "left":
+        kv_s, kv_e = S - lengths, np.full(B, S)
+    else:
+        kv_s, kv_e = np.zeros(B, np.int64), lengths
+    mask = ((pos >= kv_s[:, None]) & (pos < kv_e[:, None])).astype(np.int32)
+    scale = hd ** -0.5
+    ref = _stock(q, k, v, mask, nh, nkv, scale, hd=hd)
+    got = k3.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy(kv_s.astype(np.int32)), torch.from_numpy(kv_e.astype(np.int32)), scale, nkv,
+    ).numpy()
+    real = mask.astype(bool)
+    assert np.abs(got[real] - ref[real]).max() <= 2e-5
+    assert np.isfinite(got).all()
+
+
 def test_kernel_head_dim_rule():
-    """The head dims the kernel takes: every multiple of 64 that JAX sends to
-    the stock kernel, up to 512."""
-    assert k3.HEAD_DIMS == (64, 128, 192, 256, 320, 384, 448, 512)
+    """The head dims the kernel takes: every multiple of 64, as JAX sends
+    any to the stock kernel. The wrapper keeps no list and no cap, and the
+    CUDA entry point sends head dims past 512 to the streaming kernel."""
+    import os
+
+    assert not hasattr(k3, "HEAD_DIMS") and not hasattr(k3, "MAX_HEAD_DIM")
+    src = os.path.join(os.path.dirname(k3.__file__), "..", "csrc", "flash_attention.cu")
+    with open(src, encoding="utf-8") as f:
+        assert "if (HD > 512 && HD % 64 == 0)" in f.read()
 
 
 def test_plain_rows_without_keys_stay_finite():
@@ -191,10 +225,10 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [96, 576])
+@pytest.mark.parametrize("hd", [96, 160])
 def test_kernel_raises_at_other_head_dims(cuda, hd):
-    """The kernel takes head dims that are multiples of 64 up to 512; on the
-    card any other head dim raises, and never runs the plain version."""
+    """The kernel takes head dims that are multiples of 64; on the card any
+    other head dim raises, and never runs the plain version."""
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(1, 128, 2, 1, seed=5, hd=hd))
     r = torch.zeros(1, dtype=torch.int32, device=cuda)
     before = k3.launches
@@ -270,6 +304,36 @@ def test_kernel_matches_plain_at_head_dims_64_and_256(cuda, hd, nh, nkv, S, leng
     (512, 4, 2, 520, [520, 257, 1, 0]),
 ])
 def test_kernel_matches_plain_at_head_dims_192_to_512(cuda, hd, nh, nkv, S, lengths, side):
+    B = len(lengths)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(B, S, nh, nkv, seed=S + hd, hd=hd))
+    n = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if side == "left":
+        kv_s, kv_e = S - n, torch.full((B,), S, dtype=torch.int32, device=cuda)
+    else:
+        kv_s, kv_e = torch.zeros(B, dtype=torch.int32, device=cuda), n
+    before = k3.launches
+    got = k3.flash_attention(q, k, v, kv_s, kv_e, hd ** -0.5, nkv)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    ref = k3.flash_attention_plain(q, k, v, kv_s, kv_e, hd ** -0.5, nkv)
+    assert torch.isfinite(got.float()).all()  # pad rows included
+    pos = torch.arange(S, device=cuda)[None, :]
+    real = (pos >= kv_s[:, None]) & (pos < kv_e[:, None])
+    g, r = got[real].float().reshape(-1, hd), ref[real].float().reshape(-1, hd)
+    assert ((g - r).abs() <= ROW_RTOL * r.abs().amax(dim=1, keepdim=True)).all()
+    for b, length in enumerate(lengths):
+        if length == 0:
+            assert (got[b] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("hd,nh,nkv,S,lengths", [
+    (576, 4, 2, 520, [520, 300, 1, 0]),  # Q and K in chunks of 4 + 5 panels, V in 4 + 5
+    (768, 2, 1, 264, [264, 130, 64, 8]),
+    (1024, 4, 1, 520, [520, 257, 1, 0]),
+])
+def test_kernel_matches_plain_past_head_dim_512(cuda, hd, nh, nkv, S, lengths, side):
     B = len(lengths)
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _inputs(B, S, nh, nkv, seed=S + hd, hd=hd))
     n = torch.tensor(lengths, dtype=torch.int32, device=cuda)

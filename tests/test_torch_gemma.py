@@ -19,6 +19,7 @@ softcapped attention is K4's plain version:
 """
 
 import asyncio
+import dataclasses
 import json
 
 import numpy as np
@@ -221,11 +222,12 @@ def gemma_checkpoint(tmp_path):
     return str(tmp_path)
 
 
-def test_loader_matches_jax(gemma_checkpoint):
+@pytest.mark.parametrize("quant", ["", "w8a8"])
+def test_loader_matches_jax(gemma_checkpoint, quant):
     ref = jax.tree.map(np.asarray, jh.load_decoder_params(
-        gemma_checkpoint, 4, start_layer=2, gemma=True, head_layer_sep=2, dtype=jnp.float32))
+        gemma_checkpoint, 4, start_layer=2, gemma=True, head_layer_sep=2, dtype=jnp.float32, quant=quant))
     got = th.load_decoder_params(gemma_checkpoint, 4, dtype=torch.float32, start_layer=2, gemma=True, head_layer_sep=2,
-                                  device="cpu")
+                                  device="cpu", quant=quant)
     assert sorted(got["heads"]) == sorted(ref["heads"]) == [2, 4]
 
     def same(a, b):
@@ -243,17 +245,17 @@ def test_loader_matches_jax(gemma_checkpoint):
     assert sorted(got["layers"][0]) == ["attn", "input_norm", "mlp", "post_attn_norm", "post_mlp_norm", "pre_mlp_norm"]
 
 
-def test_load_gemma_reranker(gemma_checkpoint):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tg.load_gemma_reranker(gemma_checkpoint, quant="int8", device="cpu")
-    got = tg.load_gemma_reranker(gemma_checkpoint, device="cpu", dtype=torch.float32, cutoff_layer=4,
+@pytest.mark.parametrize("quant", ["", "w8a8"])
+def test_load_gemma_reranker(gemma_checkpoint, quant):
+    got = tg.load_gemma_reranker(gemma_checkpoint, quant=quant, device="cpu", dtype=torch.float32, cutoff_layer=4,
                                  compress_layer=(2,))
     assert got.padding_side == got.tokenizer.padding_side == "right"
+    assert got.cfg.act_quant == (quant == "w8a8") and ("w_q" in got.layers[0].q) == (quant == "w8a8")
     hf = jh.load_hf_config(gemma_checkpoint)
     params = jh.load_decoder_params(gemma_checkpoint, 4, start_layer=2, gemma=True, head_layer_sep=2,
-                                    dtype=jnp.float32)
-    ref = jg.GemmaCostWiseReranker(jg.gemma_config_from_hf(hf, dtype=jnp.float32), params, got.tokenizer,
-                                   cutoff_layer=4, compress_layer=(2,))
+                                    dtype=jnp.float32, quant=quant)
+    jcfg = dataclasses.replace(jg.gemma_config_from_hf(hf, dtype=jnp.float32), act_quant=quant == "w8a8")
+    ref = jg.GemmaCostWiseReranker(jcfg, params, got.tokenizer, cutoff_layer=4, compress_layer=(2,))
     pairs = [("w1 w2", "w3 w4 w5 w6 w7"), ("w9", "w8 w7")]
     np.testing.assert_allclose(got.score_pairs(pairs)[0], np.asarray(ref.score_pairs(pairs)[0]), rtol=1e-4, atol=1e-5)
 

@@ -7,6 +7,8 @@ scores agree within atol 1e-4 and rank the pairs in the same order, on both
 padding sides and through the early-exit judge path.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -109,3 +111,76 @@ def test_random_init_is_seeded():
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
     assert (a.heads[0] == 0).all() and (a.heads[1:] != 0).any()
     np.testing.assert_array_equal(a.score_pairs(PAIRS)[0], b.score_pairs(PAIRS)[0])
+
+
+@pytest.fixture(scope="module")
+def minicpm_checkpoint(tmp_path_factory):
+    """A tiny MiniCPM layerwise checkpoint in HF names: the decoder, three
+    layerwise heads (``lm_head.{j}.linear_head.weight``), ``start_layer`` 2
+    in ``config.json``, and a word tokenizer."""
+    import json
+
+    from safetensors.torch import save_file
+
+    from test_checkpoint_boot import _word_tokenizer
+
+    out = tmp_path_factory.mktemp("models") / "minicpm-tiny"
+    out.mkdir()
+    g = torch.Generator().manual_seed(8)
+    d, inter = ARCH["hidden_size"], ARCH["intermediate_size"]
+    shapes = {"model.embed_tokens.weight": (64, d), "model.norm.weight": (d,)}
+    for i in range(ARCH["num_hidden_layers"]):
+        for n, shape in (("self_attn.q_proj.weight", (d, d)), ("self_attn.k_proj.weight", (d, d)),
+                         ("self_attn.v_proj.weight", (d, d)), ("self_attn.o_proj.weight", (d, d)),
+                         ("mlp.gate_proj.weight", (inter, d)), ("mlp.up_proj.weight", (inter, d)),
+                         ("mlp.down_proj.weight", (d, inter)), ("input_layernorm.weight", (d,)),
+                         ("post_attention_layernorm.weight", (d,))):
+            shapes[f"model.layers.{i}.{n}"] = shape
+    for j in range(3):
+        shapes[f"lm_head.{j}.linear_head.weight"] = (1, d)
+    save_file({n: torch.randn(s, generator=g) * 0.05 + (1.0 if "norm" in n else 0.0) for n, s in shapes.items()},
+              str(out / "model.safetensors"))
+    with open(out / "config.json", "w") as f:
+        json.dump({**ARCH, "vocab_size": 64, "start_layer": 2, "rms_norm_eps": 1e-5}, f)
+    _word_tokenizer().save_pretrained(str(out))
+    return str(out)
+
+
+@pytest.mark.parametrize("quant", ["", "w8a8", "w4a8"])
+def test_minicpm_loader_matches_jax(minicpm_checkpoint, quant):
+    from easyrag_tpu.models import hf_loader as jh
+    from easyrag_tpu_torch.models import hf_loader as th
+    from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
+
+    jcfg, ref, jstart = jh.load_minicpm_reranker(minicpm_checkpoint, dtype=jnp.float32, quant=quant)
+    cfg, got, start = th.load_minicpm_reranker(minicpm_checkpoint, dtype=torch.float32, quant=quant, device="cpu")
+    assert start == jstart == 2 and sorted(got["heads"]) == sorted(ref["heads"]) == [2, 3, 4]
+    assert cfg == DecoderConfig(**{**ARCH, "vocab_size": 64}, rms_norm_eps=1e-5, act_quant=bool(quant))
+    assert cfg.act_quant == jcfg.act_quant
+
+    def same(a, b):
+        if isinstance(b, dict):
+            assert sorted(a) == sorted(b)
+            for k in b:
+                same(a[k], b[k])
+        elif isinstance(b, list):
+            for x, y in zip(a, b, strict=True):
+                same(x, y)
+        else:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    same(got, jax.tree.map(np.asarray, ref))
+    if not quant:  # the in-memory form over the same tensors
+        from safetensors.numpy import load_file
+
+        sd = load_file(os.path.join(minicpm_checkpoint, "model.safetensors"))
+        same(th.params_from_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, 4, start_layer=2, device="cpu"),
+             jax.tree.map(np.asarray, jh.params_from_state_dict(sd, 4, start_layer=2)))
+    # the checkpoint-backed scorer: the same leaves in its DecoderLayers, JAX's scores
+    scorer = MiniCPMLayerWiseReranker.from_pretrained(minicpm_checkpoint, quant=quant, device="cpu",
+                                                      dtype=torch.float32, cutoff_layer=4, max_length=64)
+    assert scorer.start_layer == 2 and scorer.cfg.act_quant == bool(quant)
+    jscorer = JaxReranker(jcfg, ref, scorer.tokenizer, start_layer=2, cutoff_layer=4, max_length=64)
+    pairs = [("w1 w2", "w3 w4 w5 w6 w7"), ("w9", "w8 w7"), ("w5", "w5 w5 w5 w1")]
+    np.testing.assert_allclose(scorer.score_pairs(pairs)[0], np.asarray(jscorer.score_pairs(pairs)[0]),
+                               rtol=1e-4, atol=1e-5)

@@ -44,7 +44,7 @@ from easyrag_tpu_torch import config as tconfig
 from easyrag_tpu_torch.corpus import tokenizer as tokmod
 from easyrag_tpu_torch.generation import CompletionResponse
 from easyrag_tpu_torch.models.convert import gte_from_jax, minicpm_from_jax
-from easyrag_tpu_torch.models.layers import DecoderConfig
+from easyrag_tpu_torch.models.layers import DecoderConfig, quantize_layers_
 from easyrag_tpu_torch.pipeline import EasyRAGPipeline
 from easyrag_tpu_torch.rerankers import LLMRerank
 from easyrag_tpu_torch.retrievers import HybridRetriever
@@ -167,6 +167,49 @@ def test_local_llm_answer_matches_jax_pipeline(tmp_path, offline_counter, tiny_c
     assert got.local_llm_generate("w3 w1 w4") == ref.local_llm_generate("w3 w1 w4")
 
 
+def test_flagship_preset_matches_jax_pipeline(tmp_path, offline_counter, tiny_causal_checkpoint):
+    """``configs/four_tenant.yaml`` through both pipelines: the w8a8 MiniCPM
+    reranker (one tiny tree, int8 leaves and ``act_quant``) behind
+    ``LLMRerank`` with the preset's carried two-stage cascade (keep 32), and
+    each package's own int4 generator over one tiny saved Qwen2 checkpoint
+    answering. The same nodes, contexts and answers; reranker scores within
+    atol 1e-4. Overridden for the tiny run: the corpus, the generator's
+    directory and ``local_llm_max_new`` 4; JAX's warmup and compile cache,
+    which the port does not have, are off."""
+    from easyrag_tpu.models import hf_loader as jh
+    from easyrag_tpu_torch.generation import BatchingLocalLLM
+
+    preset = os.path.join(REPO, "configs", "four_tenant.yaml")
+    overrides = {"data_path": make_corpus(tmp_path / "corpus"), "local_llm_name": tiny_causal_checkpoint,
+                 "cache_path": str(tmp_path / "cache"), "tpu.local_llm_max_new": 4,
+                 "tpu.local_llm_warmup": False, "tpu.compile_cache_dir": ""}
+    cfg, port_cfg = jconfig.load_config(preset, overrides=overrides), tconfig.load_config(preset, overrides=overrides)
+    assert (port_cfg.r_use_efficient, port_cfg.tpu.cascade_carry, port_cfg.tpu.reranker_quant,
+            port_cfg.tpu.local_llm_quant) == (3, True, "w8a8", "int4")
+    jcfg, params, params_np = tiny_params()
+    qparams = jh.quantize_decoder_tree(params, "int8")
+    qparams["heads"] = params["heads"]
+    opts = dict(start_layer=1, cutoff_layer=3, max_length=64, efficient_layers=(2,), use_efficient=3)
+    rerank = dict(top_n=cfg.r_topk, embed_bs=cfg.r_embed_bs, use_efficient=cfg.r_use_efficient,
+                  cascade_keep=cfg.tpu.cascade_keep, cascade_carry=cfg.tpu.cascade_carry)
+    ref = JaxPipeline(cfg, reranker=JaxLLMRerank(
+        JaxReranker(dataclasses.replace(jcfg, act_quant=True), qparams, CharTok(), **opts), **rerank))
+    scorer = minicpm_from_jax(DecoderConfig(**ARCH), params_np, "cpu", torch.float32, CharTok(), **opts)
+    quantize_layers_(scorer, port_cfg.tpu.reranker_quant)
+    got = EasyRAGPipeline(port_cfg, reranker=LLMRerank(scorer, **rerank), device="cpu")
+    assert isinstance(got.llm, BatchingLocalLLM) and "w_p" in got.local_llm.params["layers"][0]["mlp"]["down"]
+    carried = []
+    scorer.score_carried = (lambda f: lambda *a: carried.append(1) or f(*a))(scorer.score_carried)
+    for q in QUERIES:
+        a = asyncio.run(ref.run(dict(q)))
+        b = asyncio.run(got.run(dict(q)))
+        assert [n.node.idx for n in b["nodes"]] == [n.node.idx for n in a["nodes"]]
+        assert b["contexts"] == a["contexts"]
+        np.testing.assert_allclose([n.score for n in b["nodes"]], [n.score for n in a["nodes"]], atol=1e-4, rtol=0)
+        assert b["answer"] == a["answer"] and b["answer"]
+    assert len(carried) == len(QUERIES)  # stage 2 resumed from the carried hidden states
+
+
 def dense_pair(tmp_path, side="right", **kw):
     """(JAX's pipeline, the port's, the port's embedder) on the dense route
     with one tiny gte-Qwen2 tree and one tiny MiniCPM reranker; each writes
@@ -287,8 +330,7 @@ def test_unported_options_raise(tmp_path, offline_counter):
     for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1, "retrieval_type": 3}, {"split_type": 1},
                {"hyde": True},
                {"index_artifact_path": str(tmp_path / "a")}, {"use_reranker": 2},
-               {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_answer=True, local_llm_continuous=True)},
-               {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_quant="w4a8")}):
+               {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_answer=True, local_llm_continuous=True)}):
         with pytest.raises(NotImplementedError):
             EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}), device="cpu")
 
@@ -310,6 +352,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
     from easyrag_tpu_torch.generation import CompletionResponse
     from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+    from easyrag_tpu_torch.models.yes_logit import YesLogitScorer  # noqa: F401
+    from easyrag_tpu_torch.models.hf_loader import load_minicpm_reranker, params_from_state_dict  # noqa: F401
 
     DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
     root = {tmp!r}

@@ -12,12 +12,18 @@ CUDA-event timing, then one batch under ``torch.profiler``:
   bge-reranker-v2-minicpm-layerwise (cutoff 28, heads from layer 8, right
   padding), attention through K1.
 
+``--quant w8a8`` quantizes the scorer's projections on the card
+(``layers.quantize_layers_``: int8 weights, activations quantized per token at run time),
+as ``configs/four_tenant.yaml``'s ``tpu.reranker_quant`` asks.
+
 Prints the wall time per batch, the device's busy and idle shares of the
-profiled batch, the device time by kind (the attention kernel, cuBLAS GEMMs,
-the rest) and the kernels that take the most time.
+profiled batch, the device time by kind (the attention kernel, the GEMMs:
+cuBLAS in bf16, ``torch._int_mm`` under w8a8; under w8a8 the per-token
+quantization passes and the rescales of the s32 products; the rest, the
+elementwise chain) and the kernels that take the most time.
 
 Run on a machine with one CUDA card:
-    python tools/torch_profile_rerank.py [--model gemma|minicpm] [--batches 3] [--batch 32]
+    python tools/torch_profile_rerank.py [--model gemma|minicpm] [--quant w8a8] [--batches 3] [--batch 32]
 """
 
 from __future__ import annotations
@@ -35,12 +41,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 from easyrag_tpu_torch.models.gemma import GemmaCostWiseReranker  # noqa: E402
+from easyrag_tpu_torch.models import layers  # noqa: E402
 from easyrag_tpu_torch.models.layers import DecoderConfig  # noqa: E402
 from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker  # noqa: E402
 from easyrag_tpu_torch.ops import flash64 as k1  # noqa: E402
 from easyrag_tpu_torch.ops import flash_softcap as k4  # noqa: E402
 
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
+# the w8a8 passes, profiled as named ranges: range name -> the function in models/layers.py
+LABELS = {"a8 quantization": "quantize_tokens", "a8 rescale": "rescale_s32"}
 
 
 def kind(name: str) -> str:
@@ -52,6 +61,14 @@ def kind(name: str) -> str:
     if any(m in low for m in GEMM_MARKS):
         return "GEMM"
     return "other"
+
+
+def ranged(fn, label):
+    """``fn`` inside a ``torch.profiler.record_function`` range ``label``."""
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return call
 
 
 def make_pairs(batch: int, seed: int):
@@ -71,6 +88,7 @@ def main() -> int:
     ap.add_argument("--model", choices=("gemma", "minicpm"), default="gemma")
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--quant", choices=("", "w8a8"), default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -92,6 +110,13 @@ def main() -> int:
             device=dev, dtype=torch.bfloat16,
         ).init_random_(gen.manual_seed(cs.SEED))
         attn, mod = "K1", k1
+    if args.quant:
+        layers.quantize_layers_(scorer, args.quant)
+        torch.cuda.synchronize()
+        print(f"projections quantized to {args.quant}")
+    # the w8a8 passes as named ranges: their kernels' device time is read off them
+    for name, label in LABELS.items():
+        setattr(layers, label, ranged(getattr(layers, label), name))
     pairs = make_pairs(args.batch, cs.SEED)
     ids = scorer.build_inputs(pairs)[0]
     print(f"batch {args.batch} pairs, padded length {ids.shape[1]}")
@@ -117,15 +142,21 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_kind = {attn: 0.0, "GEMM": 0.0, "other": 0.0}
-    kernels = []
+    kernels, ranges = [], {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.key in LABELS:  # a range's span on the device, not a kernel
+            ranges[e.key] = us / 1e3
+            continue
         by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) + us / 1e3
         kernels.append((us / 1e3, e.count, e.key))
+    for key, ms in ranges.items():  # their kernels are elementwise ones, counted under "other" by name
+        by_kind[key] = ms
+        by_kind["other"] -= ms
     busy = sum(by_kind.values())
     print(f"profiled batch: wall {wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}), "
           f"idle {1 - busy / wall:.1%}; {attn} launches {mod.launches - launches_0}")
