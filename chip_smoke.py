@@ -7,7 +7,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
 
 0. environment: Python/torch/CUDA versions, the card's ``nvidia-smi`` name
    and power limit, ``nvcc``, and which of yaml/jieba/transformers import;
-1. build the five CUDA kernels from ``easyrag_tpu_torch/csrc`` (the sources
+1. build the six CUDA kernels from ``easyrag_tpu_torch/csrc`` (the sources
    and their shared header ``attention_sm90.cuh``), one ``nvcc`` per source,
    all started together; print each one's registers and spills;
 2. each kernel against its plain PyTorch version on the card: K1
@@ -32,7 +32,12 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    and (64, 256, 320) S=200, and at 576 (4 on 2) and 1024 (4 on 1), past
    512 where Q and K stream through shared memory, at S=520, with ragged and
    empty rows (an empty row must be zero); max error, median times from
-   CUDA events, and SDPA's time on the same inputs;
+   CUDA events, and SDPA's time on the same inputs; K6 (``chunk_max``) at
+   [1, 20000], [64, 20000], [67, 20000] and [256, 20480] with an all
+   ``-inf`` row and tied chunks, equal to its plain version bit for bit, the
+   pruned top-6/192/288 through it equal to the whole row sorted; device
+   times from CUDA graphs cycling through copies of the input 4x the L2's
+   size, beside ``amax`` over contiguous 8;
 3. the port's ``EasyRAGPipeline.run`` on ``configs/easyrag.yaml`` over a
    seeded synthetic corpus of 20,000 chunks, with the full-width
    bge-reranker-v2-minicpm-layerwise (hidden 2304, 36x64 heads, 40 layers,
@@ -40,8 +45,8 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    character tokenizer with right padding, and a stub in place of the GLM-4
    client. Three queries: a short one, one with a ``document`` dir filter,
    one with more than 64 distinct terms. Kernel launch counts are reset just
-   before the three runs and read just after; K1 must run on every query
-   and K5 on the long one. The content route's top-192 must equal the
+   before the three runs and read just after; K1 and K6 (the content top-192
+   and the path top-6) must run on every query and K5 on the long one. The content route's top-192 must equal the
    float64 host ranking (ties aside) and the reranker must agree with an f32
    CPU run of its first 8 layers on a small input. The long query's overflow
    scatter, run twice with ``use_pallas`` off, must go through K5 and give
@@ -85,8 +90,12 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    boot and read just after the three queries: the boot embeds and indexes
    the files (K3 must run), phase 3's three queries run (K3 and K1 on every
    query). A reboot from the saved index embeds nothing and gives the same
-   nodes; a 2-layer cut on the card against the CPU in f32 (relative L2 of
-   each embedding within 5e-2). Then K3 against its plain version at the
+   nodes; a second reboot with ``use_reranker: 0`` runs
+   ``run_retrieval_batch`` over 128 queries (embedded at B=128) against
+   ``run`` query by query: sparse lists equal bit for bit, dense lists within
+   the bf16 embedding's drift between B=128 and B=1, fused rows equal where
+   the dense lists are; a 2-layer cut on the card against the CPU in f32
+   (relative L2 of each embedding within 5e-2). Then K3 against its plain version at the
    shapes and right padding the boot and the queries gave it (every
    index-build batch, B=128, S=2048, with the plain version over 8-row
    slices; each query at B=1), and at B=32, S=1024, B=8, S=2048 and B=1,
@@ -114,7 +123,18 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    each adds. Last the yes-logit scorer (``models/yes_logit.py``) on phase
    7's gte-Qwen2-7B-width tree rebuilt from its seed (the head tied to the
    embedding): one 32-pair batch in bf16 and w8a8 (K3 in every layer), and a
-   2-layer w8a8 cut against the CPU.
+   2-layer w8a8 cut against the CPU;
+9. batch evaluation: phase 3's MiniCPM saved under Hugging Face names with
+   a word tokenizer as ``bge-reranker-v2-minicpm-layerwise``; the CLI
+   (``cli.run_batch``, ``--re-only``, ``configs/easyrag.yaml`` over phase 3's
+   corpus) over 8 val questions (one filtered, one of 80 terms), the reranker
+   loaded by that name through the registry; ``run_retrieval_batch`` with no
+   reranker over 512 queries (8 of 80 terms: K5), every row equal to
+   ``run``'s (nodes, scores, contexts); ``run_answers_batch`` on the 8
+   questions with phase 5's int4 generator (32 new tokens, gen batch 4),
+   whose contexts must equal the sequential ``run``'s and the CLI's bit for
+   bit; launch counts reset just before each of the three runs and read
+   just after, and the qps and wall times.
 
 Every kernel's entry in the JSON line carries its bound at the timed shape
 (the larger of its operations over the card's peak for their type and its
@@ -123,13 +143,15 @@ and, where one PyTorch call computes the same function, that call's time
 (``scaled_dot_product_attention`` for K1 and K3, ``index_add_`` for K5,
 ``flex_attention`` compiled with the softcap as its ``score_mod`` for K4,
 ``torch.ops.aten._weight_int4pack_mm`` for K2, on weights repacked into its
-layout with the per-channel scale as every group's bf16 scale).
+layout with the per-channel scale as every group's bf16 scale, ``amax`` for
+K6).
 
 Prints its total seconds, one JSON line of kernel results (K1's and K5's
 times at the pipeline's shapes, K2's gateup's at R=1, K3's at both call
 sites: the prefill's at B=1, S=7680 and the embedder's at the boot's first
-index-build batch, K4's at B=32, S=1152; launches from phases 3, 5, 6 and
-7, each kernel's own main path), the ``nvidia-smi`` line, and last
+index-build batch, K4's at B=32, S=1152, K6's at B=64, N=20000; launches
+from phases 3, 5, 6, 7 and 9, each kernel's own main path), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -228,6 +250,10 @@ EMB_REL_TOL = GEN_REL_TOL  # bf16 card vs f32 CPU, 2 embedder layers, relative L
 # batch of another width and (left padding) at other absolute positions,
 # which moves a few bf16 roundings of the hidden state
 CARRY_TOL = 2e-2
+# phase 9: queries of the 512-query retrieval stream, questions of the CLI's
+# val split and of the staged answers, and the generator's new tokens there
+# (phase 5 runs the flagship's 128; 32 keep the sequential reference short)
+STREAM_QUERIES, BATCH_QUESTIONS, BATCH_GEN_NEW = 512, 8, 32
 # the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -385,7 +411,7 @@ def phase_env(torch):
     return smi
 
 
-KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention", "flash_softcap")
+KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention", "flash_softcap", "chunkmax")
 
 
 def phase_build():
@@ -740,6 +766,59 @@ def phase_kernels(torch, f64, k5):
     return errs
 
 
+def k6_case(torch, gen, B, N):
+    """``[B, N]`` scores built to break a chunk max or a top-k's tie order:
+    few distinct values (ties inside and across chunks), a row all ``-inf``
+    (a filter that matches nothing), a row all equal, ``-inf`` every 3rd."""
+    x = torch.randint(0, 5, (B, N), generator=gen, device="cuda").float()
+    x[0] = float("-inf")
+    if B > 1:
+        x[1] = 2.0
+        x[-1, ::3] = float("-inf")
+    return x
+
+
+def phase_chunkmax(torch, k6):
+    """K6 (``chunk_max``) against its plain version bit for bit at the path's
+    shapes: one query (B=1), a stream batch (B=64), a ragged tail (B=67)
+    and the TPU probe's shape; device times per call from CUDA graphs that
+    cycle through copies of the input totalling 4x the L2 (every call reads
+    HBM), with ``amax`` over contiguous 8, the library call, timed the same
+    way. Returns the times per shape (the error is 0: the check is bit for
+    bit)."""
+    say("== phase 2 (K6): chunk_max vs its plain version")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    times = {}
+    for B, N in ((1, 20_000), (64, 20_000), (67, 20_000), (256, 20_480)):
+        x = k6_case(torch, gen, B, N)
+        got, ref = k6.chunk_max(x), k6.chunk_max_plain(x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K6 disagrees with its plain version at [{B}, {N}]")
+        # the same top-k as the whole row stable-sorted, through K6
+        from easyrag_tpu_torch.ops import topk
+
+        for k in (6, 192, 288):
+            v, i = topk.topk_desc_reference_order(x, k)
+            sv, si = topk._sorted_topk(x, k)
+            check(torch.equal(i, si) and torch.equal(v, sv), f"the pruned top-{k} differs from the sort at [{B}, {N}]")
+        copies = [x] + [x.clone() for _ in range(max(1, -(-L2_FLUSH_BYTES // x.nbytes)) - 1)]
+        n = max(50, len(copies))
+        cold = itertools.cycle(copies)
+        ms = graph_ms(torch, lambda: k6.chunk_max(next(cold)), n=n)
+        plain = graph_ms(torch, lambda: k6.chunk_max_plain(next(cold)), n=n)
+        lib = graph_ms(torch, lambda: next(cold).view(B, N // 8, 8).amax(-1), n=n)
+        hot = graph_ms(torch, lambda: k6.chunk_max(x))
+        nbytes = x.nbytes + x.nbytes // 8
+        b6 = bound(B * N, nbytes, PEAK_F32)  # one f32 max per element
+        times[(B, N)] = (ms, plain, *b6, lib)
+        say(f"K6 [{B}, {N}] (-inf row, tied chunks): equal to the plain version bit for bit, the pruned top-6/192/288 "
+            f"equal to the sort; kernel {ms * 1e3:.2f} us from HBM ({nbytes / ms / 1e6:.1f} GB/s, {b6[0] / ms:.1%} "
+            f"of the bound), {hot * 1e3:.2f} us from L2; plain {plain * 1e3:.2f} us, amax {lib * 1e3:.2f} us "
+            f"(kernel {lib / ms:.2f}x as fast); bound {b6[0] * 1e3:.3f} us ({b6[1]})")
+        del copies
+    return times
+
+
 def host_route_check(np, pipeline, query, dir_name, k):
     """The content route's device top-k against the float64 host ranking:
     the true score at every rank must equal the host's sorted score at that
@@ -791,7 +870,7 @@ def make_queries(np, rng, pipeline):
     ]
 
 
-def phase_pipeline(torch, np, f64, k5, tmp):
+def phase_pipeline(torch, np, f64, k5, k6, tmp):
     say("== phase 3: EasyRAGPipeline.run, default config, 20k chunks, full-width reranker")
     from easyrag_tpu_torch.config import load_config
     from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
@@ -855,25 +934,28 @@ def phase_pipeline(torch, np, f64, k5, tmp):
     results = []
     f64.launches = 0
     k5.launches = 0
+    k6.launches = 0
     for name, q, _ in queries:
         batches.append([])
-        k1_0, k5_0 = f64.launches, k5.launches
+        k1_0, k5_0, k6_0 = f64.launches, k5.launches, k6.launches
         t = time.perf_counter()
         out = asyncio.run(pipeline.run(dict(q)))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        results.append((name, q, out, ms, f64.launches - k1_0, k5.launches - k5_0, dict(stages)))
+        results.append((name, q, out, ms, f64.launches - k1_0, k5.launches - k5_0, k6.launches - k6_0, dict(stages)))
         stages.clear()
-    launches = {"K1": f64.launches, "K5": k5.launches}
+    launches = {"K1": f64.launches, "K5": k5.launches, "K6": k6.launches}
     unsubscribe()
 
-    for (name, q, out, ms, dk1, dk5, st), n_cand, sizes in zip(results, candidates, batches, strict=True):
+    for (name, q, out, ms, dk1, dk5, dk6, st), n_cand, sizes in zip(results, candidates, batches, strict=True):
         n_terms = len(set(pipeline.sparse_retriever._tokenize_query(q["query"])))
         split = ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
         say(f"query {name!r} ({n_terms} distinct terms): {ms:.1f} ms ({split}); {n_cand} candidates in "
             f"{len(sizes)} rerank batches {sizes}, {st['rerank'] / len(sizes):.1f} ms per batch; "
-            f"top-6 {[n.node.idx for n in out['nodes']]}; K1 launches {dk1}, K5 launches {dk5}")
+            f"top-6 {[n.node.idx for n in out['nodes']]}; K1 launches {dk1}, K5 launches {dk5}, K6 launches {dk6}")
         check(dk1 > 0, f"K1 did not run on query {name!r}")
+        # the content top-192 and the path top-6 over 20,000 take the pruned top-k
+        check(dk6 >= 2, f"K6 did not run in both top-ks of query {name!r}")
         check(len(out["nodes"]) == cfg.r_topk and len(out["contexts"]) == cfg.r_topk, f"query {name!r}: wrong result size")
         check(all(np.isfinite(n.score) for n in out["nodes"]), f"query {name!r}: non-finite rerank score")
         check(out["answer"] == "无法确定", f"query {name!r}: unexpected answer")
@@ -1725,6 +1807,7 @@ def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
     check(torch.equal(again.dense_retriever.index.matrix, dense.dense_retriever.index.matrix), "the reboot gave another index")
     say(f"reboot from the saved index: {secs:.1f} s, nothing embedded, the same {n} nodes and index bits")
     del again, dense
+    fusion_batch_check(torch, np, dataclasses.replace(pcfg, use_reranker=0), embedder)
     gc.collect()
     shutil.rmtree(data)  # it lies inside phase 3's corpus, which phase 8 reads again
 
@@ -1741,6 +1824,109 @@ def phase_dense(torch, np, tmp, pipeline, reranker, queries, mods):
     peak = torch.cuda.max_memory_allocated() / 2**30
     say(f"peak device memory in phase 7: {peak:.2f} GiB")
     return launches, k3_err, k3_times, ("boot", *boot_shapes[0][:2])
+
+
+def stream_queries(np, rng, pipeline, n, long_every=64):
+    """``n`` queries as :func:`make_queries` draws them: 12 words of a random
+    node; every 8th (from the 6th) filtered to that node's dir; every
+    ``long_every``-th of 80 distinct words (past the 64-term budget: the
+    gather path, K5)."""
+    head = {f"t{t}" for t in range(32)}  # the Zipf head, as stopwords would remove it
+    nodes, tok = pipeline.nodes, pipeline.sparse_tk
+
+    def words(i):
+        return [w for w in tok.cut(nodes[i].text) if w.startswith("t") and w not in head]
+
+    out = []
+    for i in range(n):
+        a = int(rng.integers(0, len(nodes)))
+        if i % long_every == long_every - 1:
+            pool = []
+            for j in rng.integers(0, len(nodes), size=8):
+                pool += [w for w in dict.fromkeys(words(int(j))) if w not in pool]
+            out.append({"query": " ".join(pool[:80])})
+            continue
+        q = {"query": " ".join(rng.choice(words(a), size=12, replace=False).tolist())}
+        if i % 8 == 5:
+            q["document"] = nodes[a].metadata["dir"]
+        out.append(q)
+    return out
+
+
+def same_rows(a, b) -> bool:
+    """Two result lists with the same nodes, scores (exactly) and contexts."""
+    return all(
+        x["contexts"] == y["contexts"]
+        and [(n.node.idx, n.score) for n in x["nodes"]] == [(n.node.idx, n.score) for n in y["nodes"]]
+        for x, y in zip(a, b, strict=True)
+    )
+
+
+def fusion_batch_check(torch, np, cfg, embedder):
+    """Phase 7's batch: a pipeline rebooted from the saved index with
+    ``use_reranker: 0``, ``run_retrieval_batch`` over 128 queries on the
+    fusion path (the queries embedded at B=128, ``DenseIndex.query_stream``,
+    the sparse stream, RRF) against ``run`` query by query. The sparse lists
+    must equal the per-query ones bit for bit; the dense lists may differ only
+    as far as the query embeddings do: the index scores a query in bf16, and
+    a query's bf16 embedding at B=128 differs from its embedding alone by
+    ``d = ||bf16(e_128) - bf16(e_1)||``, which moves each cosine against a
+    (bf16, unit) row by at most ``1.01 d``, so the two lists' scores at every
+    rank must lie within that (plus ``DENSE_TIE_ATOL`` of f32 sums) of each
+    other. Rows whose dense lists come out equal must give the per-query
+    fused rows."""
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+    from easyrag_tpu_torch.schema import QueryBundle
+
+    pipe = EasyRAGPipeline(
+        cfg, llm=StubLLM(), embed_model=embedder, sparse_tokenizer=SparseTokenizer(),
+        splitter=SentenceSplitter(cfg.chunk_size, cfg.chunk_overlap, token_counter=approx_token_count,
+                                  sentence_splitter=lambda t: [t]),
+        device=torch.device("cuda"),
+    )
+    check(pipe.reranker is None, "the batch pipeline booted with a reranker")
+    pipe.re_only = True
+    queries = stream_queries(np, np.random.default_rng(SEED + 30), pipe, 128)
+    bundles = [QueryBundle(query_str=q["query"]) for q in queries]
+    pairs = [pipe.build_filters(q) for q in queries]
+    dense_b = pipe.dense_retriever.retrieve_batch(bundles, [p[0] for p in pairs])
+    sparse_b = pipe.sparse_retriever.retrieve_batch(bundles, [p[1] for p in pairs])
+    dense_1, sparse_1 = [], []
+    for b, (dense_f, sparse_f) in zip(bundles, pairs):
+        pipe.dense_retriever.filters, pipe.sparse_retriever.filter_dict = dense_f, sparse_f
+        dense_1.append(pipe.dense_retriever.retrieve(b))
+        sparse_1.append(pipe.sparse_retriever.retrieve(b))
+    check(all([(n.node.idx, n.score) for n in x] == [(n.node.idx, n.score) for n in y]
+              for x, y in zip(sparse_b, sparse_1)), "a batch row's sparse list differs from its query's alone")
+    texts = [q["query"] for q in queries]
+    e_b = torch.from_numpy(np.asarray(embedder.get_query_embeddings(texts), np.float32))
+    e_1 = torch.from_numpy(np.stack([np.asarray(embedder.get_query_embedding(t), np.float32) for t in texts]))
+    drift = (e_b.bfloat16().float() - e_1.bfloat16().float()).norm(dim=1).numpy()
+    same_ids = []
+    for row, (x, y) in enumerate(zip(dense_b, dense_1)):
+        check(len(x) == len(y), "a batch row's dense list has another length")
+        gap = float(np.abs(np.array([n.score for n in x]) - np.array([n.score for n in y])).max()) if x else 0.0
+        check(gap <= 1.01 * drift[row] + DENSE_TIE_ATOL, f"row {row}: dense scores moved {gap:.3e} for an "
+              f"embedding drift of {drift[row]:.3e}")
+        same_ids.append([n.node.idx for n in x] == [n.node.idx for n in y])
+
+    t0 = time.perf_counter()
+    batch = asyncio.run(pipe.run_retrieval_batch([dict(q) for q in queries]))
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [asyncio.run(pipe.run(dict(q))) for q in queries]
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    check(same_rows([b for b, s in zip(batch, same_ids) if s], [x for x, s in zip(singles, same_ids) if s]),
+          "a fused batch row with the per-query dense list differs from its query's run")
+    say(f"fusion batch (use_reranker 0, rebooted from the saved index): 128 queries, run_retrieval_batch "
+        f"{t_batch * 1e3:.1f} ms ({128 / t_batch:.1f} qps) vs run one by one {t_single * 1e3:.1f} ms "
+        f"({128 / t_single:.1f} qps); sparse lists equal bit for bit on all rows; dense lists equal on "
+        f"{sum(same_ids)}/128 rows, the rest within the embedding drift (B=128 vs 1: {drift.min():.2e}-"
+        f"{drift.max():.2e}); fused rows equal to run's on those {sum(same_ids)}")
 
 
 class StageClock:
@@ -1973,6 +2159,57 @@ def phase_yes_logit(torch, np, pairs, mods):
     del params, cut
 
 
+def save_minicpm_checkpoint(torch, scorer, arch, out_dir, start_layer):
+    """The scorer's weights under the Hugging Face names ``hf_loader`` reads
+    (``model.layers.{i}.self_attn.q_proj.weight``, ...; the layerwise heads
+    as ``lm_head.{j}.linear_head.weight`` from ``start_layer``), in one
+    safetensors file, with a ``config.json`` of ``arch``."""
+    from safetensors.torch import save_file
+
+    norms = {"input_norm": "input_layernorm", "post_norm": "post_attention_layernorm"}
+    projs = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+             "gate": "mlp.gate_proj", "up": "mlp.up_proj", "down": "mlp.down_proj"}
+    tensors = {}
+    for key, t in scorer.state_dict().items():
+        parts = key.split(".")
+        if key == "heads":
+            for layer in range(start_layer, t.shape[0]):
+                tensors[f"lm_head.{layer - start_layer}.linear_head.weight"] = t[layer : layer + 1].cpu().contiguous()
+            continue
+        if key == "embed":
+            name = "model.embed_tokens.weight"
+        elif key == "final_norm":
+            name = "model.norm.weight"
+        elif parts[2] in norms:
+            name = f"model.layers.{parts[1]}.{norms[parts[2]]}.weight"
+        else:
+            name = f"model.layers.{parts[1]}.{projs[parts[2]]}.weight"
+        tensors[name] = t.cpu().contiguous()
+    os.makedirs(out_dir, exist_ok=True)
+    save_file(tensors, os.path.join(out_dir, "model.safetensors"))
+    with open(os.path.join(out_dir, "config.json"), "w", encoding="utf-8") as fh:
+        json.dump({"architectures": ["LayerWiseMiniCPMForCausalLM"], **arch, "start_layer": start_layer}, fh)
+
+
+def save_word_tokenizer(out_dir, words):
+    """A word-level Hugging Face tokenizer over ``words`` (whitespace and
+    punctuation split, ``[PAD]`` 0, ``<s>`` 1, ``[UNK]`` 2, right padding),
+    saved the way ``tests/test_checkpoint_boot.py::_word_tokenizer`` saves
+    one, so ``AutoTokenizer.from_pretrained`` reads it back."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"[PAD]": 0, "<s>": 1, "[UNK]": 2}
+    for w in words:
+        vocab.setdefault(w, len(vocab))
+    tok = Tokenizer(WordLevel(vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = Whitespace()
+    PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="[UNK]", pad_token="[PAD]", bos_token="<s>",
+                            padding_side="right").save_pretrained(out_dir)
+
+
 def phase_flagship(torch, np, tmp, scorer16, generator, queries, mods):
     """``configs/four_tenant.yaml`` on the card: phase 3's corpus, phase 3's
     MiniCPM quantized to w8a8, the carried two-stage cascade, phase 5's int4
@@ -2124,6 +2361,152 @@ def phase_flagship(torch, np, tmp, scorer16, generator, queries, mods):
 
 
 
+def phase_batch_eval(torch, np, tmp, pipeline, reranker, generator, mods):
+    """The batch-evaluation path: ``cli.run_batch`` with the reranker loaded
+    by name from a saved checkpoint, ``run_retrieval_batch`` over a 512-query
+    stream, ``run_answers_batch`` with the int4 generator. Returns the
+    launches of its three runs, each counted from 0 just before the run and
+    read just after."""
+    say("== phase 9: batch evaluation (the registry, the CLI, run_retrieval_batch, run_answers_batch)")
+    import gc
+
+    from transformers import AutoTokenizer
+
+    from easyrag_tpu_torch import cli
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.generation import BatchingLocalLLM
+    from easyrag_tpu_torch.models.decode import TorchCausalLM
+    from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
+
+    scorer = reranker.scorer
+    cfg = pipeline.config
+    counts = {}
+
+    def reset():
+        for mod in mods.values():
+            mod.launches = 0
+
+    def read(run):
+        counts[run] = {key: mod.launches for key, mod in mods.items()}
+        return counts[run]
+
+    rng = np.random.default_rng(SEED + 40)
+    questions = stream_queries(np, rng, pipeline, BATCH_QUESTIONS, long_every=BATCH_QUESTIONS)
+    val = [{"id": i, **q, "answer": "", "keywords": [q["query"].split()[0]]} for i, q in enumerate(questions)]
+    with tempfile.TemporaryDirectory(prefix="easyrag_batch_") as work:
+        # (1) phase 3's MiniCPM saved as a checkpoint, with a word tokenizer
+        model_dir = os.path.join(work, "models", "bge-reranker-v2-minicpm-layerwise")
+        t0 = time.perf_counter()
+        save_minicpm_checkpoint(torch, scorer, RERANKER, model_dir, scorer.start_layer)
+        save_word_tokenizer(model_dir, [f"t{t}" for t in range(VOCAB)] + [f"doc{f}" for f in range(N_DOCS)])
+        size = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
+        say(f"checkpoint: {size / 2**30:.2f} GiB of bf16 weights and a word tokenizer saved to "
+            f"{os.path.relpath(model_dir, work)} in {time.perf_counter() - t0:.1f} s")
+
+        # (2) the CLI on configs/easyrag.yaml over phase 3's corpus, --re-only;
+        # the registry loads the reranker by the directory's name
+        qa = os.path.join(work, "qa")
+        os.makedirs(qa)
+        with open(os.path.join(qa, "val.json"), "w", encoding="utf-8") as fh:
+            json.dump(val, fh, ensure_ascii=False)
+        run_dir = os.path.join(work, "run")
+        os.makedirs(run_dir)
+        args = cli.parse_args(["--config", os.path.join(REPO, "configs", "easyrag.yaml"), "--split", "val",
+                               "--re-only", "--note", "smoke", "--qa-dir", qa, "--set", f"data_path={tmp}",
+                               "--set", f"reranker_name={model_dir}"])
+        cwd = os.getcwd()
+        os.chdir(run_dir)
+        reset()
+        t0 = time.perf_counter()
+        try:
+            asyncio.run(cli.run_batch(
+                args, sparse_tokenizer=SparseTokenizer(),
+                splitter=SentenceSplitter(cfg.chunk_size, cfg.chunk_overlap, token_counter=approx_token_count,
+                                          sentence_splitter=lambda t: [t]),
+            ))
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        t_cli = time.perf_counter() - t0
+        got = read("cli")
+        for name in ("outputs/submit_result_val_smoke.jsonl", "submit_result.jsonl", "inter/val_smoke.json"):
+            check(os.path.exists(os.path.join(run_dir, name)), f"the CLI did not write {name}")
+        with open(os.path.join(run_dir, "inter", "val_smoke.json"), encoding="utf-8") as fh:
+            inter = json.load(fh)
+        check(len(inter) == BATCH_QUESTIONS and all(len(r["candidates"]) == cfg.r_topk for r in inter),
+              "the CLI's inter dump has the wrong shape")
+        check(got["K1"] > 0 and got["K5"] > 0 and got["K6"] >= 2 * BATCH_QUESTIONS,
+              f"the CLI's run missed a kernel: {got}")
+        say(f"CLI (--re-only, {BATCH_QUESTIONS} val questions, one filtered, one of 80 terms; boot, checkpoint "
+            f"load and the questions): {t_cli:.1f} s; launches {got}")
+        word_tok = AutoTokenizer.from_pretrained(model_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (3) run_retrieval_batch over a 512-query stream, no reranker, against run
+    pipeline.reranker, pipeline.re_only, pipeline.llm = None, True, StubLLM()
+    stream = stream_queries(np, rng, pipeline, STREAM_QUERIES)
+    n_long = sum(len(set(pipeline.sparse_retriever._tokenize_query(q["query"]))) > cfg.tpu.max_query_terms
+                 for q in stream)
+    reset()
+    t0 = time.perf_counter()
+    batch = asyncio.run(pipeline.run_retrieval_batch([dict(q) for q in stream]))
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    got = read("retrieval batch")
+    t0 = time.perf_counter()
+    singles = [asyncio.run(pipeline.run(dict(q))) for q in stream]
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    check(same_rows(batch, singles), "a batch row differs from its query's run (nodes, scores or contexts)")
+    check(got["K5"] == n_long and got["K6"] >= 2 * (-(-STREAM_QUERIES // 64)),
+          f"the batch run's launches {got} miss K5 on the {n_long} long rows or K6 in the top-ks")
+    say(f"run_retrieval_batch, {STREAM_QUERIES} queries ({n_long} past the term budget, every 8th filtered): "
+        f"{t_batch * 1e3:.1f} ms, {STREAM_QUERIES / t_batch:.1f} qps; run one by one {t_single * 1e3:.1f} ms, "
+        f"{STREAM_QUERIES / t_single:.1f} qps ({t_single / t_batch:.2f}x); every row equal to run's (nodes, scores, "
+        f"contexts); launches {got}")
+
+    # (4) run_answers_batch with the int4 generator (gen batch 4) against run;
+    # the reranker takes the checkpoint's tokenizer, so its contexts are the
+    # CLI's too
+    gcfg, gparams = generator
+    model = TorchCausalLM.from_params(gcfg, gparams, QwenCharTokenizer(), QWEN2_EOS, max_new_tokens=BATCH_GEN_NEW,
+                                      max_batch=GEN_BATCH, spec_tokens=GEN_SPEC)
+    char_tok = scorer.tokenizer
+    scorer.tokenizer = word_tok
+    pipeline.local_llm, pipeline.reranker, pipeline.re_only = model, reranker, False
+    pipeline.llm = BatchingLocalLLM(model, window_ms=cfg.serve_window_ms, max_batch=GEN_BATCH)
+    check(pipeline._answers_via_local_llm(), "the staged answers would not use the local generator")
+    try:
+        reset()
+        t0 = time.perf_counter()
+        staged = asyncio.run(pipeline.run_answers_batch([dict(q) for q in questions]))
+        torch.cuda.synchronize()
+        t_staged = time.perf_counter() - t0
+        got = read("staged answers")
+        dispatches = [(st["bucket"], st["batch"]) for st in model.last_stats]
+        t0 = time.perf_counter()
+        seq = [asyncio.run(pipeline.run(dict(q))) for q in questions]
+        torch.cuda.synchronize()
+        t_seq = time.perf_counter() - t0
+    finally:
+        scorer.tokenizer = char_tok
+    check(same_rows(staged, seq), "the staged answers' contexts differ from the sequential run's")
+    check([r["contexts"] for r in seq] == [r["candidates"] for r in inter],
+          "the CLI's contexts (the reranker loaded by name) differ from the in-memory reranker's")
+    check(all(isinstance(r["answer"], str) and r["answer"] for r in staged), "a staged answer is empty")
+    check(all(got[key] > 0 for key in ("K1", "K2", "K3", "K5", "K6")), f"the staged run missed a kernel: {got}")
+    equal = sum(a["answer"] == b["answer"] for a, b in zip(staged, seq))
+    say(f"run_answers_batch, {BATCH_QUESTIONS} questions ({BATCH_GEN_NEW} new tokens, spec {GEN_SPEC}): "
+        f"{t_staged:.1f} s in dispatches (bucket, B) {dispatches}; run one by one {t_seq:.1f} s; contexts equal to "
+        f"the sequential run's and to the CLI's bit for bit; answers equal on {equal}/{BATCH_QUESTIONS}; "
+        f"launches {got}")
+    del model, batch, singles
+    gc.collect()
+    return {key: sum(c[key] for c in counts.values()) for key in mods}
+
+
 def main() -> int:
     try:
         import torch
@@ -2147,6 +2530,7 @@ def main() -> int:
         os.environ.setdefault(var, os.path.join(REPO, "build", sub))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from easyrag_tpu_torch.ops import chunkmax as k6
     from easyrag_tpu_torch.ops import flash_attention as k3
     from easyrag_tpu_torch.ops import flash_softcap as k4
     from easyrag_tpu_torch.ops import int4_matvec as k2
@@ -2156,16 +2540,18 @@ def main() -> int:
         smi = phase_env(torch)
         phase_build()
         errs = phase_kernels(torch, f64, k5)
+        k6_times = phase_chunkmax(torch, k6)
         new_errs, new_times, extra = phase_new_kernels(torch, np, k2, k3)
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
-            pipeline, minicpm, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, tmp)
+            pipeline, minicpm, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, k6, tmp)
             timings = phase_main_shapes(torch, np, f64, k5, mask, P)
             gen_launches, _, generator = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
-            mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5}
+            mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6}
             gemma_launches, k4_err, k4_times, _ = phase_gemma(torch, np, pipeline, queries, mods)
             dense_launches, k3e_err, k3e_times, k3e_main = phase_dense(torch, np, tmp, pipeline, minicpm, queries, mods)
-            del pipeline
             phase_flagship(torch, np, tmp, minicpm.scorer, generator, queries, mods)
+            batch_launches = phase_batch_eval(torch, np, tmp, pipeline, minicpm, generator, mods)
+            del pipeline
         loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
         check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:
@@ -2191,6 +2577,8 @@ def main() -> int:
               gemma_launches["K4"], k4_err, *k4_times[(32, 1152)]),
         entry("flash_attention", "flash_attention.cu", "easyrag_tpu/models/layers.py:351", dense_launches["K3"],
               k3e_err, *k3e_times[k3e_main]),
+        entry("chunk_max", "chunkmax.cu", "tools/exp_chunkmax.py:131", batch_launches["K6"], 0.0,
+              *k6_times[(64, 20_000)]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,9 +4,13 @@ The index lives on the device once; a query uploads only its term ids and
 counts. Zipf-aware split, as in the reference:
 
 * **heavy terms** (more than ``light_cap`` postings): their contribution rows
-  form a dense f32 ``[H, N]`` matrix. A query batch's heavy part is either a
-  row gather with a weighted sum over its term slots (``B*T < H``) or a
-  one-hot ``[B, H] @ [H, N]`` matmul; both in full f32 (TF32 must be off).
+  form a dense f32 ``[H, N]`` matrix. A query batch's heavy part is a row
+  gather weighted by the counts and summed over the term slots, in full f32
+  (TF32 must be off). JAX also has a one-hot ``[B, H] @ [H, N]`` matmul form
+  and takes it when ``B*T >= H``; the port keeps the gather, as a product
+  and a reduction, at every batch size, because on the card neither cuBLAS
+  form (``bmm``, ``mm``) gives a row the same bits at another batch size,
+  and a batch row must equal the row its query gets alone.
 * **light terms**: each term's <= ``light_cap`` postings, as a padded
   term-major ``[V+1, C]`` table (``rows``) or through the CSR arrays with a
   bounded window (``csr``), are scatter-added into the scores.
@@ -136,27 +140,16 @@ class ResidentSparseIndex:
     def query_terms(self, query_tokens: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         """Tokens -> ``(term_ids[T], counts[T])``, padded with the sentinel
         term ``V``, light terms first. Duplicate tokens become counts. Raises
-        ``ValueError`` past ``max_query_terms`` distinct terms."""
-        vocab = self.host_index.stats.vocab
-        counts: dict = {}
-        for tok in query_tokens:
-            tid = vocab.get(tok)
-            if tid is not None:
-                counts[tid] = counts.get(tid, 0) + 1
-        T = self.max_query_terms
-        if len(counts) > T:
-            raise ValueError(f"query has {len(counts)} distinct terms > max_query_terms={T}")
-        ids = np.full(T, self.V, dtype=np.int64)
-        cnt = np.zeros(T, dtype=np.float32)
-        items = sorted(counts.items(), key=lambda tc: self._host_light_lens[tc[0]] == 0)
-        for i, (tid, c) in enumerate(items):
-            ids[i] = tid
-            cnt[i] = c
-        return ids, cnt
+        ``ValueError`` past ``max_query_terms`` distinct terms. The row is
+        :meth:`query_terms_batch`'s for this query: the slot order fixes the
+        order each doc's terms are added in, so a query scores to the same
+        bits alone and in a batch."""
+        ids, cnt = self.query_terms_batch([query_tokens])
+        return ids[0], cnt[0]
 
     def query_terms_batch(self, queries_tokens: Sequence[Sequence[str]]) -> Tuple[np.ndarray, np.ndarray]:
-        """:meth:`query_terms` over many queries: ``(ids[Q, T], counts[Q, T])``
-        (term order within a row may differ; scoring sums over terms)."""
+        """Many queries at once: ``(ids[Q, T], counts[Q, T])``, each row's
+        terms by ascending id, then light terms first (a stable sort)."""
         vocab = self.host_index.stats.vocab
         Q, T, V = len(queries_tokens), self.max_query_terms, self.V
         qidx: List[int] = []
@@ -202,27 +195,18 @@ class ResidentSparseIndex:
         k: int,
         dir_filter: Optional[torch.Tensor] = None,  # [B] int32
         light_t: Optional[int] = None,
-        heavy_form: str = "auto",
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Scores + filter + top-k for one batch of prepped queries.
-        ``heavy_form``: ``auto`` (gather when ``B*T < H``), ``gather`` or
-        ``matmul``."""
+        """Scores + filter + top-k for one batch of prepped queries; a row's
+        scores have the same bits at any batch size."""
         if self.device.type == "cuda":
             check_no_tf32()
         B, T = term_ids.shape
-        N, C, H = self.num_docs, self.light_cap, self.heavy.shape[0]
+        N, C = self.num_docs, self.light_cap
         hrow = self.t_heavy_row[term_ids]
         is_heavy = hrow >= 0
         w = torch.where(is_heavy, counts, 0.0)
-        use_gather = B * T < H if heavy_form == "auto" else heavy_form == "gather"
-        if use_gather:
-            g = self.heavy[torch.where(is_heavy, hrow, 0)]  # [B, T, N]
-            scores = torch.bmm(w[:, None, :], g)[:, 0, :]
-        else:
-            # term ids are unique within a row: no two adds hit one slot
-            A = torch.zeros((B, H + 1), dtype=torch.float32, device=self.device)
-            A.scatter_add_(1, torch.where(is_heavy, hrow, H), w)
-            scores = A[:, :H] @ self.heavy
+        g = self.heavy[torch.where(is_heavy, hrow, 0)]  # [B, T, N]
+        scores = (w[:, :, None] * g).sum(1)
 
         TL = T if light_t is None else light_t
         lt_ids, lt_counts = term_ids[:, :TL], counts[:, :TL]
@@ -247,6 +231,13 @@ class ResidentSparseIndex:
     def _upload(self, ids: np.ndarray, cnts: np.ndarray):
         return torch.from_numpy(ids).to(self.device), torch.from_numpy(cnts).to(self.device)
 
+    def _dir_ints(self, dir_values: Optional[Sequence[Optional[str]]]) -> Optional[np.ndarray]:
+        """Dir names -> filter ints (-1: no filter; -2: a dir the index does
+        not know, which matches nothing); None without names or dir column."""
+        if dir_values is None or self.dir_col is None:
+            return None
+        return np.asarray([self.dir_vocab.get(d, -2) if d else -1 for d in dir_values], dtype=np.int32)
+
     def score_topk(
         self,
         queries_tokens: Sequence[Sequence[str]],
@@ -256,14 +247,32 @@ class ResidentSparseIndex:
         """Batched query -> ``(scores[B, k], doc indices[B, k])`` host arrays;
         dropped entries are ``(-inf, num_docs)``."""
         ids, cnts = self.query_terms_batch(queries_tokens)
-        dir_f = None
-        if dir_values is not None and self.dir_col is not None:
-            # -1: no filter; -2: a dir the index does not know (matches nothing)
-            dir_f = torch.tensor(
-                [self.dir_vocab.get(d, -2) if d else -1 for d in dir_values], dtype=torch.int32, device=self.device
-            )
-        tv, ti = self._score_topk(*self._upload(ids, cnts), k, dir_f, self.light_t_bound(ids))
+        dir_f = self._dir_ints(dir_values)
+        dir_t = None if dir_f is None else torch.from_numpy(dir_f).to(self.device)
+        tv, ti = self._score_topk(*self._upload(ids, cnts), k, dir_t, self.light_t_bound(ids))
         return tv.cpu().numpy(), ti.cpu().numpy()
+
+    def stream_from_arrays(
+        self, ids: np.ndarray, cnts: np.ndarray, dir_f: Optional[np.ndarray], k: int, batch: int = 64
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """A prepped query stream (``ids[Q, T]``, ``cnts[Q, T]``, filter ints
+        ``dir_f[Q]`` or None) scored in batches of ``batch`` rows, one upload
+        and one bulk copy back: ``(scores[Q, k], indices[Q, k])`` host
+        arrays. JAX scans fixed batches in one dispatch and pads the tail;
+        here the batches are a loop and the tail runs at its own size."""
+        dev = self.device
+        t_ids, t_cnts = self._upload(ids, cnts)
+        t_dir = None if dir_f is None else torch.from_numpy(np.asarray(dir_f, np.int32)).to(dev)
+        light_t = self.light_t_bound(ids) if len(ids) else 0
+        parts = [
+            self._score_topk(t_ids[lo : lo + batch], t_cnts[lo : lo + batch], k,
+                             None if t_dir is None else t_dir[lo : lo + batch], light_t)
+            for lo in range(0, len(ids), batch)
+        ]
+        if not parts:
+            kk = min(k, self.num_docs)
+            return np.zeros((0, kk), np.float32), np.zeros((0, kk), np.int64)
+        return torch.cat([v for v, _ in parts]).cpu().numpy(), torch.cat([i for _, i in parts]).cpu().numpy()
 
     def stream_score_topk(
         self,
@@ -274,17 +283,8 @@ class ResidentSparseIndex:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """A whole query stream in batches of ``batch`` (the reference's
         scan over batches): ``(scores[Q, k], indices[Q, k])``."""
-        parts = [
-            self.score_topk(
-                queries_tokens[lo : lo + batch],
-                k,
-                None if dir_values is None else dir_values[lo : lo + batch],
-            )
-            for lo in range(0, len(queries_tokens), batch)
-        ]
-        if not parts:
-            return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
-        return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+        ids, cnts = self.query_terms_batch(queries_tokens)
+        return self.stream_from_arrays(ids, cnts, self._dir_ints(dir_values), k, batch=batch)
 
 
 class DualResidentScorer:
@@ -308,12 +308,19 @@ class DualResidentScorer:
         tv2, ti2 = p._score_topk(*p._upload(ids2, cnt2), k_path, None, p.light_t_bound(ids2))
         return (tv1.cpu().numpy(), ti1.cpu().numpy()), (tv2.cpu().numpy(), ti2.cpu().numpy())
 
+    def stream_from_arrays(self, ids1, cnt1, ids2, cnt2, dir_fs, k_content: int, k_path: int, batch: int = 64):
+        """Both routes of a prepped query stream in batches of ``batch``
+        (``pipeline._dual_retrieve_stream`` keeps the arrays of its overflow
+        check rather than prepping twice): ``((tv1, ti1), (tv2, ti2))``
+        host arrays, one row per query."""
+        return (
+            self.content.stream_from_arrays(ids1, cnt1, np.asarray(dir_fs, np.int32), k_content, batch=batch),
+            self.path.stream_from_arrays(ids2, cnt2, None, k_path, batch=batch),
+        )
+
     def stream_score_topk(self, query_tokens_batch, k_content: int, k_path: int, dir_fs, batch: int = 64):
         """:meth:`score_topk` over a whole query stream in batches."""
-        parts = [
-            self.score_topk(query_tokens_batch[lo : lo + batch], k_content, k_path, dir_fs[lo : lo + batch])
-            for lo in range(0, len(query_tokens_batch), batch)
-        ]
-        return tuple(
-            tuple(np.concatenate([pt[route][j] for pt in parts]) for j in range(2)) for route in range(2)
+        return self.stream_from_arrays(
+            *self.content.query_terms_batch(query_tokens_batch), *self.path.query_terms_batch(query_tokens_batch),
+            dir_fs, k_content, k_path, batch=batch,
         )

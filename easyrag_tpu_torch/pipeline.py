@@ -17,14 +17,21 @@ JAX, ``rerank_fusion_type`` 0 never queries it (ROADMAP Queue 3). The answer
 comes from the injected LLM, or, with ``local_llm_name`` and
 ``tpu.local_llm_answer``, from the on-device generator
 (``models/decode.py::TorchCausalLM``) behind ``generation.BatchingLocalLLM``,
-as ``easyrag_tpu/pipeline.py:99-127`` wires it. Every other option of the
-config raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+as ``easyrag_tpu/pipeline.py:99-127`` wires it. A reranker or an embedder
+that is not injected is loaded by name through ``models/registry.py``, as
+``easyrag_tpu/pipeline.py:154-165,324-338`` loads them. The batch entry
+points: ``run_retrieval_batch`` (a whole query set retrieved in 64-row
+batches, the sparse dual route or the fusion route's dense and sparse lists)
+and ``run_answers_batch`` (that retrieval, each query reranked, every answer
+from ``TorchCausalLM.generate_batch``), each row equal to ``run``'s. Every
+other option of the config raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,13 +52,11 @@ from .templates import MERGE_TEMPLATE, QA_TEMPLATE, PromptTemplate
 from .utils.events import emit, trace
 
 
-def _check_supported(cfg: EasyRAGConfig, reranker, embed_model) -> None:
+def _check_supported(cfg: EasyRAGConfig) -> None:
     """Say which ROADMAP item covers an option the port does not have yet."""
     if cfg.rerank_fusion_type != 0 and cfg.retrieval_type == 2:
         raise ValueError(f"rerank_fusion_type={cfg.rerank_fusion_type} fuses the dense route: set retrieval_type 1 or 3")
     unported = [
-        (cfg.retrieval_type != 2 and embed_model is None,
-         "loading an embedder by name needs the registry and loader, ROADMAP Queue 1, items 5 and 7; pass embed_model="),
         (cfg.split_type != 0, "split_type=1: hierarchical auto-merge retrieval is ROADMAP Queue 1, item 7"),
         (cfg.hyde or cfg.hyde_merging, "HyDE is ROADMAP Queue 1, item 7"),
         (bool(cfg.index_artifact_path), "index_artifact_path: the corpus artifact is ROADMAP Queue 1, item 7"),
@@ -59,8 +64,6 @@ def _check_supported(cfg: EasyRAGConfig, reranker, embed_model) -> None:
          "tpu.local_llm_continuous: the continuous-batching decode pool is ROADMAP Queue 1, item 9"),
         (bool(cfg.compress_method), "compress_method: context compression is ROADMAP Queue 1, item 7"),
         (bool(cfg.tpu.shard_index or cfg.tpu.mesh_shape), "sharded indexes are ROADMAP Queue 1, item 13"),
-        (reranker is None and cfg.use_reranker != 0,
-         "loading a reranker by name needs the registry and loader, ROADMAP Queue 1, items 5 and 7; pass reranker="),
     ]
     for bad, why in unported:
         if bad:
@@ -83,12 +86,14 @@ class EasyRAGPipeline:
         reference); ``splitter`` chunks the documents (default: the
         reference's ``SentenceSplitter(chunk_size, chunk_overlap)``, whose
         default token counter wants a tiktoken table). ``embed_model`` is the
-        dense route's embedder (``models/qwen2.py::GTEEmbedder``), needed
-        with ``retrieval_type`` 1 or 3. ``device`` is the card unless the
-        caller asks for the CPU; without a card it raises."""
+        dense route's embedder (``models/qwen2.py::GTEEmbedder``), used with
+        ``retrieval_type`` 1 or 3; without it, ``embedding_name`` is loaded
+        through the registry, as ``reranker_name`` is without ``reranker``
+        (``use_reranker`` 1 or 2). ``device`` is the card unless the caller
+        asks for the CPU; without a card it raises."""
         if isinstance(config, dict):
             config = EasyRAGConfig.from_dict(config)
-        _check_supported(config, reranker, embed_model)
+        _check_supported(config)
         self.config = cfg = config
         self.device = resolve_device(device)
         self.re_only = cfg.re_only
@@ -124,7 +129,16 @@ class EasyRAGPipeline:
         self.nodeid2idx = build_nodeid2idx(self.nodes)
         self._ctx_cache: Dict[int, str] = {}
 
+        self._ctx_classes = None  # see _content_classes
+
         self.embed_model = embed_model
+        if cfg.retrieval_type != 2 and embed_model is None:
+            from .models.registry import load_embedder
+
+            self.embed_model = load_embedder(
+                cfg.embedding_name, cache_folder=cfg.hfmodel_cache_folder, embed_type=cfg.f_embed_type_1,
+                quant=cfg.tpu.embedder_quant, device=self.device,
+            )
         self.dense_retriever = self._build_dense(self.nodes, cfg) if cfg.retrieval_type != 2 else None
 
         route = dict(
@@ -153,6 +167,14 @@ class EasyRAGPipeline:
         else:
             self.retriever = HybridRetriever(self.dense_retriever, self.sparse_retriever, cfg.retrieval_type, cfg.f_topk)
         self.reranker = reranker
+        if reranker is None and cfg.use_reranker != 0:
+            from .models.registry import load_reranker
+
+            self.reranker = load_reranker(
+                cfg.reranker_name, top_n=cfg.r_topk, embed_bs=cfg.r_embed_bs, embed_type=cfg.r_embed_type,
+                use_efficient=cfg.r_use_efficient, use_st=cfg.use_reranker == 1, quant=cfg.tpu.reranker_quant,
+                cascade_keep=cfg.tpu.cascade_keep, cascade_carry=cfg.tpu.cascade_carry, device=self.device,
+            )
         if cfg.local_llm_name and self.local_llm is None:  # local_llm_generate only
             self.local_llm = self._make_local_llm(cfg, self.device)
 
@@ -240,6 +262,200 @@ class EasyRAGPipeline:
             return await self.generation_with_knowledge_retrieval(query_str=query["query"])
         self.dense_retriever.filters = filters
         return await self.generation_with_rerank_fusion(query_str=query["query"])
+
+    # -- batch entry points -----------------------------------------------------
+
+    async def run_retrieval_batch(self, queries: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Retrieval only for a whole query set, each row equal to ``run``
+        with ``re_only`` (``easyrag_tpu/pipeline.py:531-560``). Without a
+        reranker, the default path scores both sparse routes in 64-row
+        batches (:meth:`_sparse_fused_batch`) and the fusion path embeds the
+        queries at once and streams the dense and sparse lists
+        (:meth:`_run_fusion_retrieval_batch`); anything else runs ``run``
+        query by query."""
+        if self.reranker is None and self.config.rerank_fusion_type != 0:
+            return self._run_fusion_retrieval_batch(queries)
+        if self.reranker is not None:
+            return [await self.run(dict(q)) for q in queries]
+        return [
+            {"answer": "", "nodes": fused, "contexts": [self.get_node_content(n) for n in fused]}
+            for fused in self._sparse_fused_batch(queries)
+        ]
+
+    def _sparse_fused_batch(self, queries) -> List[list]:
+        """Both sparse routes of every query, in 64-row batches, fused per
+        query (dedup through the integer content classes): the shared core of
+        :meth:`run_retrieval_batch` and :meth:`run_answers_batch`."""
+        bundles = [QueryBundle(query_str=q["query"]) for q in queries]
+        filter_dicts = [self.build_filters(q)[1] for q in queries]
+        with trace("retrieval_batch"):
+            if self._dual_scorer is not None:
+                content_lists, path_lists = self._dual_retrieve_stream(bundles, filter_dicts)
+            else:
+                content_lists = self.sparse_retriever.retrieve_batch(bundles, filter_dicts)
+                path_lists = [[] for _ in queries]
+        return [self._fuse_corpus_lists([c, p]) for c, p in zip(content_lists, path_lists)]
+
+    async def run_answers_batch(self, queries: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Staged batch answers (``easyrag_tpu/pipeline.py:590-627``): one
+        retrieval stream for every query, the reranker query by query, then
+        every prompt through the local generator's ``generate_batch``
+        (``gen_batch``-row decodes). Each row equals ``run``'s. It stages
+        only on the default path and where ``run`` itself answers with that
+        generator (or with ``re_only``); otherwise it runs ``run`` query by
+        query."""
+        gen = self.local_llm
+        stageable = self.config.rerank_fusion_type == 0 and (
+            self.re_only or (hasattr(gen, "generate_batch") and self._answers_via_local_llm())
+        )
+        if not stageable:
+            return [await self.run(dict(q)) for q in queries]
+        return await self._run_answers_staged(queries, self._sparse_fused_batch(queries), gen)
+
+    def _answers_via_local_llm(self) -> bool:
+        """True when ``run``'s answer LLM is the local generator, directly or
+        behind ``BatchingLocalLLM`` (which holds it as ``.model``)."""
+        gen = self.local_llm
+        return gen is not None and (self.llm is gen or getattr(self.llm, "model", None) is gen)
+
+    async def _run_answers_staged(self, queries, fused_lists, gen) -> List[Dict[str, Any]]:
+        results, prompts = [], []
+        for q, fused in zip(queries, fused_lists):
+            if self.reranker:
+                emit("reranking", {"candidates": len(fused)})
+                with trace("rerank"):
+                    fused = self.reranker.postprocess_nodes(fused, QueryBundle(query_str=q["query"]))
+            contents = [self.get_node_content(n) for n in fused]
+            results.append({"answer": "", "nodes": fused, "contexts": contents})
+            if not self.re_only:
+                context_str = "\n\n".join(f"### 文档{i}: {c}" for i, c in enumerate(contents))
+                prompts.append(self.qa_template.format(context_str=context_str, query_str=q["query"]))
+        if self.re_only:
+            return results
+        with trace("generation"):
+            answers = gen.generate_batch(prompts)
+        if self.ans_refine_type == 1:
+            answers = gen.generate_batch([
+                self.merge_template.format(context_str=res["contexts"][0] if res["contexts"] else "",
+                                           query_str=q["query"], answer_str=ans)
+                for q, res, ans in zip(queries, results, answers)
+            ])
+        for res, ans in zip(results, answers):
+            if self.ans_refine_type == 2 and res["contexts"]:
+                ans = ans + "\n\n" + res["contexts"][0]
+            res["answer"] = ans
+        return results
+
+    def _content_classes(self) -> List[int]:
+        """``cls[idx]``: the idx of the first corpus node with the same
+        content, so batch fusion dedups on ints (built once; the nodes do not
+        change after ingest)."""
+        if self._ctx_classes is None:
+            first: Dict[str, int] = {}
+            self._ctx_classes = [first.setdefault(n.get_content(), i) for i, n in enumerate(self.nodes)]
+        return self._ctx_classes
+
+    def _fuse_corpus_lists(self, lists) -> list:
+        """``HybridRetriever.fusion`` (dedup by content keeping the first,
+        stable sort by score descending, top 256) on the integer content
+        classes; the classmethod itself where a node lacks a corpus idx."""
+        if not all(nw.node.idx >= 0 for nodes in lists for nw in nodes):
+            return HybridRetriever.fusion(lists)
+        cls = self._content_classes()
+        seen, fused = set(), []
+        for nodes in lists:
+            for nw in nodes:
+                c = cls[nw.node.idx]
+                if c not in seen:
+                    seen.add(c)
+                    fused.append(nw)
+        fused.sort(key=lambda n: n.score, reverse=True)
+        return fused[:256]
+
+    def _run_fusion_retrieval_batch(self, queries: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Retrieval only on the fusion path for a whole query set: the
+        queries embedded at once, ``DenseIndex.query_stream``, the sparse
+        stream, RRF to ``r_topk_1`` per query (``easyrag_tpu/pipeline.py:
+        717-744``)."""
+        bundles = [QueryBundle(query_str=q["query"]) for q in queries]
+        pairs = [self.build_filters(q) for q in queries]
+        with trace("retrieval_batch"):
+            dense_lists = self.dense_retriever.retrieve_batch(bundles, [p[0] for p in pairs])
+            sparse_lists = self.sparse_retriever.retrieve_batch(bundles, [p[1] for p in pairs])
+        out = []
+        for sparse_nodes, dense_nodes in zip(sparse_lists, dense_lists):
+            fused = self._rrf_corpus_lists([sparse_nodes, dense_nodes], topk=self.config.r_topk_1)
+            out.append({"answer": "", "nodes": fused, "contexts": [self.get_node_content(n) for n in fused]})
+        return out
+
+    def _rrf_corpus_lists(self, lists, K: int = 60, topk: int = 256) -> list:
+        """``HybridRetriever.reciprocal_rank_fusion`` on the integer content
+        classes (the same sums, the later route's node as representative,
+        first insertion breaking score ties); the classmethod itself where a
+        node lacks a corpus idx."""
+        if not all(nw.node.idx >= 0 for nodes in lists for nw in nodes):
+            return HybridRetriever.reciprocal_rank_fusion(lists, K=K, topk=topk)
+        cls = self._content_classes()
+        rrf: Dict[int, float] = {}
+        rep: Dict[int, NodeWithScore] = {}
+        for rank_list in lists:
+            for rank, item in enumerate(rank_list, 1):
+                c = cls[item.node.idx]
+                rep[c] = item
+                rrf[c] = rrf.get(c, 0.0) + 1.0 / (rank + K)
+        fused = []
+        for c, score in sorted(rrf.items(), key=lambda x: x[1], reverse=True):
+            node = rep[c]
+            node.score = score
+            fused.append(node)
+        return fused[: min(topk, len(fused))]
+
+    def _dual_retrieve_stream(self, bundles, filter_dicts):
+        """Both sparse routes of a whole query set in 64-row batches: the
+        batch form of :meth:`_dual_retrieve`, row for row (the content route
+        takes the dir filter, the path route does not). The stream is prepped
+        at once; if a query overflows the term budget, the rows are checked
+        one by one and the overflowing ones are retrieved per route (the
+        gather path, K5)."""
+        sparse, path = self.sparse_retriever, self.path_retriever
+        tokens = [sparse._tokenize_query(qb.query_str) for qb in bundles]
+        dir_fs = [-1 if fd is None or fd.get("dir") is None else sparse.index.dir_vocab.get(fd["dir"], -2)
+                  for fd in filter_dicts]
+        try:
+            prepped = (*sparse._resident.query_terms_batch(tokens), *path._resident.query_terms_batch(tokens))
+            valid, overflow = list(range(len(tokens))), []
+        except ValueError:
+            valid, overflow = [], []
+            for i, toks in enumerate(tokens):
+                try:
+                    sparse._resident.query_terms(toks)
+                    path._resident.query_terms(toks)
+                    valid.append(i)
+                except ValueError:
+                    overflow.append(i)
+            kept = [tokens[i] for i in valid]
+            prepped = (*sparse._resident.query_terms_batch(kept), *path._resident.query_terms_batch(kept))
+
+        def to_nodes(tv_row, ti_row):
+            n = int(np.isfinite(tv_row).sum())  # scores descending, -inf tail
+            return [NodeWithScore(node=self.nodes[j], score=v) for v, j in zip(tv_row[:n].tolist(), ti_row[:n].tolist())]
+
+        content_lists = [[] for _ in bundles]
+        path_lists = [[] for _ in bundles]
+        if valid:
+            (tv1, ti1), (tv2, ti2) = self._dual_scorer.stream_from_arrays(
+                *prepped, [dir_fs[i] for i in valid], sparse._similarity_top_k, path._similarity_top_k
+            )
+            for row, i in enumerate(valid):
+                content_lists[i] = to_nodes(tv1[row], ti1[row])
+                path_lists[i] = to_nodes(tv2[row], ti2[row])
+        saved = sparse.filter_dict
+        for i in overflow:
+            sparse.filter_dict = filter_dicts[i]
+            content_lists[i] = sparse.retrieve(bundles[i])
+            path_lists[i] = path.retrieve(bundles[i])
+        sparse.filter_dict = saved
+        return content_lists, path_lists
 
     def _dual_retrieve(self, query_bundle: QueryBundle):
         """Both routes scored together for one query; None when a route

@@ -13,7 +13,7 @@ content fusion (``retrievers.py:239-253``), its reciprocal rank fusion
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +54,7 @@ class BM25Retriever:
         self.stopwords = stopwords
         self._similarity_top_k = similarity_top_k
         self.embed_type = embed_type
+        self.bm25_type = bm25_type
         self.max_query_postings = max_query_postings
         self.use_pallas = use_pallas
         self.device = resolve_device(device)
@@ -79,6 +80,16 @@ class BM25Retriever:
     def _tokenize_query(self, query: str) -> List[str]:
         return tokenize_and_remove_stopwords(self._tokenizer, query, self.stopwords)
 
+    def get_scores(self, query: str, docs: Optional[Sequence[str]] = None) -> np.ndarray:
+        """Full float64 score vector on the host. With ``docs``, over a
+        throwaway index of those texts (the compressor's path,
+        ``easyrag_tpu/retrievers.py:137-156``)."""
+        index = self.index
+        if docs is not None:
+            corpus_tokens = [tokenize_and_remove_stopwords(self._tokenizer, d, self.stopwords) for d in docs]
+            index = build_sparse_index(corpus_tokens, bm25_type=self.bm25_type)
+        return index.get_scores_host(self._tokenize_query(query))
+
     def _dir_filter_value(self) -> int:
         """-1: no filter; -2: a dir the index does not know (matches nothing)."""
         if self.filter_dict is None or self.filter_dict.get("dir") is None:
@@ -99,6 +110,54 @@ class BM25Retriever:
 
     async def aretrieve(self, query_bundle: QueryBundle) -> List[NodeWithScore]:
         return self.retrieve(query_bundle)
+
+    def retrieve_batch(
+        self,
+        query_bundles: Sequence[QueryBundle],
+        filter_dicts: Optional[Sequence[Optional[Dict[str, str]]]] = None,
+    ) -> List[List[NodeWithScore]]:
+        """Many queries on the resident index, in 64-row batches with their
+        own dir filters; each row equal to :meth:`retrieve`'s (JAX's
+        ``retrieve_batch``, ``easyrag_tpu/retrievers.py:235-320``). The whole
+        stream is prepped at once; if a query overflows the term budget, the
+        rows are prepped one by one and the overflowing ones go to
+        :meth:`retrieve` (the gather path, K5). Rows whose filter can never
+        match resolve to nothing on the host."""
+        tokens = [self._tokenize_query(qb.query_str) for qb in query_bundles]
+        rows: List[Optional[tuple]] = []
+        overflow: List[int] = []
+        try:
+            bids, bcnts = self._resident.query_terms_batch(tokens)
+            rows = [(bids[i], bcnts[i]) for i in range(len(tokens))]
+        except ValueError:
+            for i, toks in enumerate(tokens):
+                try:
+                    rows.append(self._resident.query_terms(toks))
+                except ValueError:
+                    rows.append(None)
+                    overflow.append(i)
+        dir_fs = []
+        for i in range(len(query_bundles)):
+            fd = filter_dicts[i] if filter_dicts else None
+            dir_fs.append(-1 if fd is None or fd.get("dir") is None else self.index.dir_vocab.get(fd["dir"], -2))
+        valid = [i for i, r in enumerate(rows) if r is not None and dir_fs[i] != -2]
+        results: List[List[NodeWithScore]] = [[] for _ in query_bundles]
+        if valid:
+            tv, ti = self._resident.stream_from_arrays(
+                np.stack([rows[i][0] for i in valid]), np.stack([rows[i][1] for i in valid]),
+                np.asarray([dir_fs[i] for i in valid], np.int32), self._similarity_top_k,
+            )
+            finites = np.isfinite(tv).sum(axis=1)  # scores descending, -inf tail
+            for row, i in enumerate(valid):
+                n = int(finites[row])
+                results[i] = [NodeWithScore(node=self._nodes[j], score=v)
+                              for v, j in zip(tv[row, :n].tolist(), ti[row, :n].tolist())]
+        saved = self.filter_dict
+        for i in overflow:
+            self.filter_dict = filter_dicts[i] if filter_dicts else None
+            results[i] = self.retrieve(query_bundles[i])
+        self.filter_dict = saved
+        return results
 
     def _device_topk(self, tokens: List[str], dir_f: int):
         dev = self.device
@@ -163,7 +222,10 @@ class DenseRetriever:
         ``DenseIndex.query_stream``; row-wise :meth:`retrieve` up to the
         rounding of the embedder's batched products."""
         queries = [qb.query_str for qb in query_bundles]
-        embs = np.asarray(self._embed_model.get_query_embeddings(queries))
+        if hasattr(self._embed_model, "get_query_embeddings"):
+            embs = np.asarray(self._embed_model.get_query_embeddings(queries))
+        else:  # an embedder of single queries only: one at a time, still one stream
+            embs = np.stack([np.asarray(self._embed_model.get_query_embedding(q)) for q in queries])
         vals, idx = self.index.query_stream(
             embs, self._similarity_top_k, dir_values=list(dir_values or [None] * len(queries))
         )

@@ -131,9 +131,9 @@ def test_resident_matches_reference(corpus, light_rows, heavy_form):
         k=24, num_docs=ref.num_docs, light_cap=ref.light_cap, P=ref.P,
         light=ref.light_layout, heavy_form=heavy_form,
     )
+    # the port's one heavy form against each of JAX's two
     gv, gi = got._score_topk(
-        torch.from_numpy(gid), torch.from_numpy(gcnt), 24, torch.from_numpy(dir_f),
-        light_t=got.light_t_bound(gid), heavy_form=heavy_form,
+        torch.from_numpy(gid), torch.from_numpy(gcnt), 24, torch.from_numpy(dir_f), light_t=got.light_t_bound(gid),
     )
     np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
     np.testing.assert_allclose(gv.numpy(), np.asarray(rv), rtol=1e-6)

@@ -327,11 +327,14 @@ def test_fusion_without_the_dense_route_is_refused(tmp_path, offline_counter):
 
 def test_unported_options_raise(tmp_path, offline_counter):
     data_path = make_corpus(tmp_path / "corpus")
-    for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1, "retrieval_type": 3}, {"split_type": 1},
-               {"hyde": True},
-               {"index_artifact_path": str(tmp_path / "a")}, {"use_reranker": 2},
+    for kw in ({"split_type": 1}, {"hyde": True}, {"index_artifact_path": str(tmp_path / "a")},
                {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_answer=True, local_llm_continuous=True)}):
         with pytest.raises(NotImplementedError):
+            EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}), device="cpu")
+    # the registry loads an embedder or a reranker named in the config: a
+    # name that is no local directory raises before any download
+    for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1, "retrieval_type": 3}, {"use_reranker": 2}):
+        with pytest.raises(FileNotFoundError, match="no network egress"):
             EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}), device="cpu")
 
 
@@ -354,6 +357,9 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     from easyrag_tpu_torch.pipeline import EasyRAGPipeline
     from easyrag_tpu_torch.models.yes_logit import YesLogitScorer  # noqa: F401
     from easyrag_tpu_torch.models.hf_loader import load_minicpm_reranker, params_from_state_dict  # noqa: F401
+    from easyrag_tpu_torch import cli, eval, submit  # noqa: F401
+    from easyrag_tpu_torch.models import registry, st_embedder  # noqa: F401
+    from easyrag_tpu_torch.ops import chunkmax  # noqa: F401
 
     DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
     root = {tmp!r}
