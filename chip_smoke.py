@@ -86,7 +86,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    151,646; random bf16 weights from a seeded ``torch.Generator``) injected
    into ``EasyRAGPipeline`` with ``retrieval_type: 3``,
    ``rerank_fusion_type: 1`` and phase 3's MiniCPM reranker over the first
-   1,024 files of phase 3's corpus. Launch counts are reset just before the
+   512 files of phase 3's corpus. Launch counts are reset just before the
    boot and read just after the three queries: the boot embeds and indexes
    the files (K3 must run), phase 3's three queries run (K3 and K1 on every
    query). A reboot from the saved index embeds nothing and gives the same
@@ -118,7 +118,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    0.99); ``linear(a8=True)`` on the card equal to the CPU's bit for bit at
    the gate projection. Times: each projection shape as ``F.linear`` in
    bf16 against w8a8's quantization, ``_int_mm`` and rescale; one batch in
-   bf16 and in w8a8; each query's rerank stage at ``use_efficient`` 0, the
+   bf16 and in w8a8; the first query's rerank stage at ``use_efficient`` 0, the
    cascade re-scoring and the cascade with the carry, with the device memory
    each adds. Last the yes-logit scorer (``models/yes_logit.py``) on phase
    7's gte-Qwen2-7B-width tree rebuilt from its seed (the head tied to the
@@ -134,7 +134,29 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    questions with phase 5's int4 generator (32 new tokens, gen batch 4),
    whose contexts must equal the sequential ``run``'s and the CLI's bit for
    bit; launch counts reset just before each of the three runs and read
-   just after, and the qps and wall times.
+   just after, and the qps and wall times;
+10. serving: (a) the decode pool (``models/decode_pool.py``) with phase 5's
+   generator at the flagship's settings (tiers 2048:2 and 7680:2, chunks of
+   32 steps, 128 new tokens): six prompts over both tiers join at chunk
+   boundaries, one finding the 2048 tier full and overflowing into the 7680
+   tier; every row's tokens must equal its solo ``generate_greedy`` at B=1,
+   plain and with spec 7 (on a difference, the first op that differs when
+   the step is replayed is printed); (b) ``configs/four_tenant.yaml`` with
+   ``tpu.local_llm_continuous`` booted into ``EasyRAGPipeline`` (phase 3's
+   MiniCPM quantized to w8a8, phase 5's generator behind the decode pool)
+   and served by ``serving.api.create_app`` (the rerank coalescer, the
+   kernel build, the pool's boot warmup) on 127.0.0.1 at an ephemeral port:
+   ``GET /test``, ``GET /ui``, a CORS preflight, then 12 ``POST /v1/rag``
+   at concurrency 4 after one warm request (``tools/bench_serving.py``'s
+   pattern); each response's contexts must equal ``run``'s for its query
+   without the server and each answer the solo greedy answer at B=1, a
+   coalesced rerank batch must hold pairs of more than one request, a
+   request must join a live pool, and K1, K2 and K3 must launch (counts
+   reset after the warm request, read after the 12); (c) the same requests
+   with ``BatchingLocalLLM``, for comparison. Latency p50/p99, wall,
+   requests/s, generated tokens/s, the pool's chunks, live rows and ms a
+   step with its host sync, the coalesced batch sizes, each beside the
+   card's ``nvidia-smi`` line.
 
 Every kernel's entry in the JSON line carries its bound at the timed shape
 (the larger of its operations over the card's peak for their type and its
@@ -150,8 +172,8 @@ Prints its total seconds, one JSON line of kernel results (K1's and K5's
 times at the pipeline's shapes, K2's gateup's at R=1, K3's at both call
 sites: the prefill's at B=1, S=7680 and the embedder's at the boot's first
 index-build batch, K4's at B=32, S=1152, K6's at B=64, N=20000; launches
-from phases 3, 5, 6, 7 and 9, each kernel's own main path), the
-``nvidia-smi`` line, and last
+from phases 3, 5, 6, 7 and 9, each kernel's own main path; phase 10's
+served requests print their own), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -236,7 +258,7 @@ GTE_QWEN2_7B = dict(
     vocab_size=151_646, hidden_size=3584, intermediate_size=18_944, num_hidden_layers=28,
     num_attention_heads=28, num_key_value_heads=4, rope_theta=1e6, rms_norm_eps=1e-6, attention_bias=True,
 )
-DENSE_DOCS = 1024  # files of phase 3's corpus the dense pipeline embeds (all 20,000 take ~8-9 min)
+DENSE_DOCS = 512  # files of phase 3's corpus the dense pipeline embeds (all 20,000 take ~8-9 min)
 INDEX_ROWS = 20_000  # configs/four_tenant.yaml:16, "dense cosine 20k x 3584 bf16"
 INDEX_QUERIES = 32
 # the index's device top-k against the float64 host ranking: scores at each
@@ -254,6 +276,14 @@ CARRY_TOL = 2e-2
 # val split and of the staged answers, and the generator's new tokens there
 # (phase 5 runs the flagship's 128; 32 keep the sequential reference short)
 STREAM_QUERIES, BATCH_QUESTIONS, BATCH_GEN_NEW = 512, 8, 32
+# phase 10: the decode pool's tiers and chunk, six prompt lengths over both
+# tiers (2048, 2048 and 512 first: the 512 one finds the 2048 tier full and
+# overflows; then 7680, 7680 and 2048 as slots free), and the served
+# requests at tools/bench_serving.py's defaults
+POOL_TIERS, POOL_CHUNK = "2048:2,7680:2", 32
+POOL_PROMPTS = (1800, 1200, 500, 7000, 6000, 1900)
+SERVE_REQUESTS, SERVE_CONCURRENCY = 12, 4
+SERVE_TIMEOUT_S = 420  # one served run, (b) or (c), fails past this instead of hanging
 # the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -411,17 +441,14 @@ def phase_env(torch):
     return smi
 
 
-KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention", "flash_softcap", "chunkmax")
-
-
 def phase_build():
     say("== phase 1: kernel build")
     from easyrag_tpu_torch import _build
 
     t0 = time.perf_counter()
-    _build.build(KERNELS)
-    say(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(KERNELS)} nvcc processes at once)")
-    for name in KERNELS:
+    _build.build(_build.KERNELS)
+    say(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(_build.KERNELS)} nvcc processes at once)")
+    for name in _build.KERNELS:
         log = _build.build_logs.get(name, "").splitlines()
         usage = [ln.split("info    :")[-1].strip() for ln in log if "registers" in ln or "spill" in ln]
         say(f"{name}: {'; '.join(usage) if usage else 'loaded from the build cache'}")
@@ -2352,7 +2379,7 @@ def phase_flagship(torch, np, tmp, scorer16, generator, queries, mods):
     t8 = cuda_ms(torch, lambda: scorer.score_pairs(batch), reps=3)
     say(f"one {len(batch)}-pair batch (S={ids.shape[1]}, cutoff {scorer.cutoff_layer}): bf16 {t16:.1f} ms, "
         f"w8a8 {t8:.1f} ms ({t16 / t8:.2f}x)")
-    rerank_stage_ms(torch, pipeline, scorer, cfg, queries)
+    rerank_stage_ms(torch, pipeline, scorer, cfg, queries[:1])
 
     phase_yes_logit(torch, np, batch, mods)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2507,6 +2534,380 @@ def phase_batch_eval(torch, np, tmp, pipeline, reranker, generator, mods):
     return {key: sum(c[key] for c in counts.values()) for key in mods}
 
 
+def serve_queries(np, rng, pipeline, n):
+    """``n`` queries for the server: :func:`stream_queries`' (12 words of a
+    random node, every 8th filtered, the last of 80 words), each naming one
+    of the corpus's four products (its dirs), as the dataset's questions
+    name products. The know-path route then adds its top 6 past the content
+    route's 192 (197-198 candidates: six full batches and a tail the
+    coalescer can fill with another request's pairs); naming none, every
+    request has exactly 192 candidates, six full batches, nothing to fill."""
+    out = stream_queries(np, rng, pipeline, n, long_every=n)
+    for q in out:
+        q["query"] += " " + ("director", "emsplus", "rcp", "umac")[int(rng.integers(0, 4))]
+    return out
+
+
+def solo_greedy(torch, cfg, params, ids, bucket, max_new):
+    """Tokens of ``ids`` alone: ``generate_greedy`` at B=1 at its bucket."""
+    from easyrag_tpu_torch.models import decode as td
+
+    dev = torch.device("cuda")
+    row, mask = td._pad_left(list(ids), bucket, QwenCharTokenizer.pad_token_id)
+    return td.generate_greedy(cfg, params, torch.tensor([row], dtype=torch.int32, device=dev),
+                              torch.tensor([mask], dtype=torch.int32, device=dev),
+                              torch.tensor(QWEN2_EOS, dtype=torch.int32, device=dev), max_new)[0].tolist()
+
+
+def pool_schedule(pool, prompts, first_wave: int):
+    """Admit ``prompts`` (name -> ids) in order: ``first_wave`` of them at
+    the first chunk boundary, then one at each later boundary where a
+    fitting tier has a free slot (head of line first). Returns each row's
+    tokens and flat slot."""
+    pending = list(prompts.items())
+    results, slots = {}, {}
+    boundary = 0
+    while pending or pool.active:
+        while pending and pool.can_admit(pending[0][1]) and (boundary > 0 or len(slots) < first_wave):
+            name, ids = pending.pop(0)
+            slots[name] = pool.insert(ids, name)
+            if boundary > 0:
+                break
+        for handle, toks in pool.run_chunk():
+            results[handle] = toks
+        boundary += 1
+    return results, slots
+
+
+def replay_step_ops(torch, cfg, params, ids, bucket, toks, k, t_tier):
+    """The first (layer, op) whose output differs between a solo step at B=1
+    and the pool's step for the same row, at the forward that gives token
+    ``k``: the solo state is rebuilt from the solo tokens; the pool's step
+    runs the row in a two-row tier cache of ``t_tier`` slots beside a copy of
+    itself (``PoolRows``, K2 at R=2). Each layer's two paths start from the
+    solo path's input. None when every op gives the same bits."""
+    from easyrag_tpu_torch.models import decode as td
+    from easyrag_tpu_torch.models.layers import embed, qkv_proj, rms_norm, rope_tables
+    from easyrag_tpu_torch.ops.flash64 import apply_rope
+
+    dev = torch.device("cuda")
+    eps, dtype = cfg.rms_norm_eps, params["final_norm"].dtype
+    row, mask = td._pad_left(list(ids), bucket, QwenCharTokenizer.pad_token_id)
+    s = bucket
+    t = s + GEN_MAX_NEW
+    cache = td.init_cache(cfg, 1, t, dtype, dev)
+    with torch.inference_mode():
+        td._prefill(cfg, params, torch.tensor([row], dtype=torch.int32, device=dev),
+                    torch.tensor([mask], dtype=torch.int32, device=dev), cache)
+        valid = torch.zeros(1, t, dtype=torch.bool, device=dev)
+        valid[0, :s] = torch.tensor(mask, device=dev) > 0
+        length = sum(mask)
+        for step in range(1, k + 1):  # the forward whose input is token step-1
+            pos = s + step - 1
+            valid[:, pos] = True
+            cos, sin = rope_tables(torch.tensor([[length + step - 1]], device=dev), cfg.hd, cfg.rope_theta)
+            h = embed(cfg, params["embed"], torch.tensor([[toks[step - 1]]], device=dev), dtype)
+            for li, p in enumerate(params["layers"]):
+                if step < k:
+                    h = td._decode_layer(cfg, p, h, pos, valid, cos, sin, cache[li])
+                    continue
+                pool_cache = {n: torch.zeros((2, t_tier + GEN_SPEC) + cache[li][n].shape[2:], dtype=dtype, device=dev)
+                              for n in ("k", "v")}
+                for n in ("k", "v"):
+                    pool_cache[n][:, :t] = cache[li][n][0]
+                rows = td.PoolRows(torch.arange(2, device=dev), ((0, t), (1, t)))
+                ops = {}
+                for name, x, c, norm in (("solo", h, cache[li], rms_norm),
+                                         ("pool", h.expand(2, -1, -1).contiguous(), pool_cache,
+                                          lambda x, w, e: td._row_norm(x, w, e, per_row=True))):
+                    n_out = norm(x, p["input_norm"], eps)
+                    q, kk, v = qkv_proj(cfg, p["attn"], n_out)
+                    rc, rs = cos.expand(x.shape[0], -1, -1), sin.expand(x.shape[0], -1, -1)
+                    q, kk = apply_rope(q, rc, rs), apply_rope(kk, rc, rs)
+                    vv = valid.expand(x.shape[0], -1)
+                    if name == "solo":
+                        c["k"][:, pos], c["v"][:, pos] = kk[:, 0], v[:, 0]
+                        att = td._attend_cache(cfg, q, *td._cache_operands(c, t), vv[:, None, :], dtype)
+                    else:
+                        c["k"][rows.index, pos], c["v"][rows.index, pos] = kk[:, 0], v[:, 0]
+                        att = td._attend_rows(cfg, q, c, vv[:, None, :], rows, dtype)
+                    out = td.mlp_residual(cfg, p, x, att, norm=norm)
+                    ops[name] = {"input norm": n_out[:1], "q": q[:1], "k": kk[:1], "v": v[:1],
+                                 "cache attention": att[:1], "layer output": out[:1]}
+                for op in ops["solo"]:
+                    if not torch.equal(ops["solo"][op], ops["pool"][op]):
+                        return f"layer {li}, {op}"
+                h = ops["solo"]["layer output"]
+    return None
+
+
+def pool_vs_solo(torch, np, cfg, params, model, smi):
+    """(a): six prompts over both tiers, joining at chunk boundaries, one
+    overflowing from the full 2048 tier; every row against its solo
+    greedy run at B=1, plain and with spec 7."""
+    from easyrag_tpu_torch.config import parse_pool_tiers
+    from easyrag_tpu_torch.models.decode_pool import DecodePool
+
+    rng = np.random.default_rng(SEED + 50)
+    prompts = {f"p{i}:{n}": [int(t) for t in rng.integers(0, QwenCharTokenizer.N_PLAIN, size=n)]
+               for i, n in enumerate(POOL_PROMPTS)}
+    buckets = {name: model._bucket(len(ids)) for name, ids in prompts.items()}
+    t0 = time.perf_counter()
+    solo = {name: solo_greedy(torch, cfg, params, ids, buckets[name], GEN_MAX_NEW) for name, ids in prompts.items()}
+    torch.cuda.synchronize()
+    say(f"(a) solo greedy at B=1 for {len(prompts)} prompts (buckets {sorted(set(buckets.values()))}): "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    tiers = parse_pool_tiers(POOL_TIERS)
+    small = tiers[0][0]
+    for spec in (0, GEN_SPEC):
+        model.spec_tokens = spec
+        pool = DecodePool(model, chunk_steps=POOL_CHUNK, tiers=tiers)
+        t0 = time.perf_counter()
+        results, slots = pool_schedule(pool, prompts, first_wave=3)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = pool.stats
+        overflow = [n for n, slot in slots.items() if buckets[n] <= small and slot >= tiers[0][1]]
+        equal = {n: results[n] == solo[n] for n in prompts}
+        say(f"(a) pool, spec {spec}: {len(prompts)} rows in {secs:.2f} s, {pool.chunks} chunk dispatches, "
+            f"{pool.joins} joins into a live pool, slots {slots}, overflowed into the {tiers[1][0]} tier: "
+            f"{overflow}; {st['steps']} steps, {st['row_steps'] / st['steps']:.2f} live rows a step, "
+            f"{st['live_rows'] / pool.chunks:.2f} a chunk, {st['chunk_ms'] / st['steps']:.2f} ms a step "
+            f"(host sync {st['sync_ms'] / st['steps']:.2f} ms of it); rows equal to solo: "
+            f"{sum(equal.values())}/{len(prompts)} [{smi}]")
+        check(bool(overflow), f"(a) spec {spec}: no request overflowed from the full {small} tier")
+        check(pool.joins > 0, f"(a) spec {spec}: no request joined a live pool")
+        for name, ok in equal.items():
+            if not ok:
+                k = next(i for i, (a, b) in enumerate(zip(results[name], solo[name])) if a != b)
+                t_tier = next(b for b, _ in sorted(tiers) if b >= buckets[name]) + GEN_MAX_NEW
+                where = replay_step_ops(torch, cfg, params, prompts[name], buckets[name], solo[name], k, t_tier)
+                say(f"(a) spec {spec}: row {name} leaves its solo run at token {k}; first op that differs "
+                    f"when the step is replayed: {where or 'none (every op of the replayed step agrees)'}")
+        check(all(equal.values()), f"(a) spec {spec}: a pool row differs from its solo greedy run")
+        del pool
+    model.spec_tokens = GEN_SPEC
+    return solo
+
+
+async def serve_and_post(torch, app, queries, concurrency):
+    """``app`` on 127.0.0.1 at an ephemeral port: ``GET /test``, ``GET
+    /ui``, a CORS preflight, one warm request, then ``queries[1:]`` at
+    ``concurrency`` (``tools/bench_serving.py``'s pattern). Returns the
+    bodies, each request's seconds, the wall seconds and the launches the
+    timed requests made (counts reset after the warm request)."""
+    from aiohttp import ClientSession, ClientTimeout, web
+
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+    sem = asyncio.Semaphore(concurrency)
+    try:
+        async with ClientSession(timeout=ClientTimeout(total=1200)) as sess:
+            async with sess.get(f"{base}/test") as r:
+                check(r.status == 200 and await r.json() == "hello rag", "GET /test failed")
+            async with sess.get(f"{base}/ui") as r:
+                check(r.status == 200 and "/v1/rag" in await r.text(), "GET /ui failed")
+            async with sess.options(f"{base}/v1/rag") as r:
+                check(r.status == 200 and r.headers.get("Access-Control-Allow-Origin") == "*", "CORS preflight failed")
+
+            async def one(q):
+                async with sem:
+                    t0 = time.perf_counter()
+                    async with sess.post(f"{base}/v1/rag", json=q) as r:
+                        body = await r.json()
+                        check(r.status == 200, f"POST /v1/rag: {r.status} {body}")
+                    return body, time.perf_counter() - t0
+
+            await one(queries[0])  # warm, outside the timed window
+            torch.cuda.synchronize()
+            launches = reset_launches()
+            t0 = time.perf_counter()
+            out = await asyncio.gather(*(one(q) for q in queries[1:]))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = launches()
+    finally:
+        await runner.cleanup()
+    return [b for b, _ in out], [s for _, s in out], wall, launches
+
+
+def served(torch, app, queries):
+    """:func:`serve_and_post` at ``SERVE_CONCURRENCY``, failing past
+    ``SERVE_TIMEOUT_S``."""
+    try:
+        return asyncio.run(asyncio.wait_for(serve_and_post(torch, app, queries, SERVE_CONCURRENCY), SERVE_TIMEOUT_S))
+    except asyncio.TimeoutError:
+        raise SmokeFailure(f"the served requests did not finish in {SERVE_TIMEOUT_S} s") from None
+
+
+def reset_launches():
+    """Set every kernel wrapper's count to 0; returns the reader."""
+    from easyrag_tpu_torch.ops import chunkmax, flash64, flash_attention, int4_matvec
+
+    mods = {"K1": flash64, "K2": int4_matvec, "K3": flash_attention, "K6": chunkmax}
+    for mod in mods.values():
+        mod.launches = 0
+    return lambda: {key: mod.launches for key, mod in mods.items()}
+
+
+def latency_line(lat, wall, n_tokens):
+    import numpy as np
+
+    lat_ms = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+    return (f"p50 {lat_ms[0]:.1f} ms, p99 {lat_ms[1]:.1f} ms, wall {wall:.2f} s, {len(lat) / wall:.3f} requests/s, "
+            f"{n_tokens / wall:.1f} generated tokens/s")
+
+
+def phase_serving(torch, np, tmp, scorer16, generator, smi):
+    """The serving path: ``configs/four_tenant.yaml`` with the decode pool,
+    through ``serving.api``; returns the launches of the served requests."""
+    say("== phase 10: serving (configs/four_tenant.yaml, the decode pool, serving.api over a live socket)")
+    import copy
+    import gc
+
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.generation import BatchingLocalLLM, ContinuousBatchingLocalLLM
+    from easyrag_tpu_torch.models.decode import TorchCausalLM
+    from easyrag_tpu_torch.models.layers import quantize_layers_
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+    from easyrag_tpu_torch.rerankers import LLMRerank
+    from easyrag_tpu_torch.serving.api import create_app
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(os.path.join(REPO, "configs", "four_tenant.yaml"), overrides={
+        "data_path": tmp, "tpu.local_llm_continuous": True, "tpu.local_llm_pool_tiers": POOL_TIERS,
+        "tpu.local_llm_chunk_steps": POOL_CHUNK,
+    })
+    check((cfg.tpu.local_llm_spec, cfg.tpu.local_llm_max_new, cfg.tpu.local_llm_gen_batch, cfg.tpu.local_llm_warmup)
+          == (GEN_SPEC, GEN_MAX_NEW, GEN_BATCH, True), "configs/four_tenant.yaml changed")
+    gcfg, gparams = generator
+    model = TorchCausalLM.from_params(gcfg, gparams, QwenCharTokenizer(), QWEN2_EOS,
+                                      max_new_tokens=cfg.tpu.local_llm_max_new, max_batch=cfg.tpu.local_llm_gen_batch,
+                                      spec_tokens=cfg.tpu.local_llm_spec, spec_ngram=cfg.tpu.local_llm_spec_ngram)
+    before = reset_launches()
+    pool_vs_solo(torch, np, gcfg, gparams, model, smi)
+    got = before()
+    say(f"(a) launches: {got}")
+    check(got["K2"] > 0 and got["K3"] > 0, f"(a) K2 or K3 did not run: {got}")
+
+    scorer = quantize_layers_(copy.deepcopy(scorer16), cfg.tpu.reranker_quant)
+    scorer.use_efficient = cfg.r_use_efficient
+    rr = LLMRerank(scorer, top_n=cfg.r_topk, embed_bs=cfg.r_embed_bs, embed_type=cfg.r_embed_type,
+                   use_efficient=cfg.r_use_efficient, cascade_keep=cfg.tpu.cascade_keep,
+                   cascade_carry=cfg.tpu.cascade_carry)
+    # no checkpoint is in the repository: the pipeline's generator is
+    # phase 5's seeded int4 model, behind the decode pool it builds itself
+    saved = EasyRAGPipeline.__dict__["_make_local_llm"]
+    EasyRAGPipeline._make_local_llm = staticmethod(lambda c, d: model)
+    try:
+        t0 = time.perf_counter()
+        pipeline = EasyRAGPipeline(
+            cfg, reranker=rr, sparse_tokenizer=SparseTokenizer(),
+            splitter=SentenceSplitter(cfg.chunk_size, cfg.chunk_overlap, token_counter=approx_token_count,
+                                      sentence_splitter=lambda t: [t]),
+            device=torch.device("cuda"),
+        )
+    finally:
+        EasyRAGPipeline._make_local_llm = saved
+    torch.cuda.synchronize()
+    wrapper = pipeline.llm
+    check(isinstance(wrapper, ContinuousBatchingLocalLLM) and pipeline.local_llm is model,
+          "the pipeline did not build the decode pool")
+    pool = wrapper.pool
+    say(f"pipeline boot: {len(pipeline.nodes)} chunks in {time.perf_counter() - t0:.1f} s; answers by the decode "
+        f"pool, tiers {[(t.bucket, t.slots) for t in pool.tiers]}, chunk {pool.chunk_steps} steps, spec "
+        f"{pool.spec_tokens}; its state {tree_bytes([t.state['caches'] for t in pool.tiers]) / 2**30:.3f} GiB")
+
+    # the references, one query at a time without the server: run's
+    # contexts and QA prompt (the carried cascade), then each prompt's
+    # solo greedy answer at B=1
+    rng = np.random.default_rng(SEED + 60)
+    queries = serve_queries(np, rng, pipeline, SERVE_REQUESTS + 1)
+    n_cand = [len(candidates(pipeline, q)) for q in queries[1:]]
+    recorder = StubLLM()
+    pipeline.llm = recorder
+    t0 = time.perf_counter()
+    ref = [asyncio.run(pipeline.run(dict(q))) for q in queries[1:]]
+    t_ref = time.perf_counter() - t0
+    pipeline.llm = wrapper
+    model.spec_tokens = 0
+    t0 = time.perf_counter()
+    answers, new_tokens = [], 0
+    for prompt in recorder.prompts:
+        answers.append(model.generate_batch([prompt])[0])
+        check(model.last_stats[0]["batch"] == 1, "a solo answer did not run at B=1")
+        new_tokens += model.last_stats[0]["new_tokens"][0]
+    model.spec_tokens = GEN_SPEC
+    say(f"references: {SERVE_REQUESTS} queries ({n_cand} candidates) through run one at a time (the carried "
+        f"cascade, no answer) in "
+        f"{t_ref:.1f} s; their solo greedy answers at B=1 ({new_tokens} tokens) in {time.perf_counter() - t0:.1f} s")
+
+    # (b) the server: the coalescer, the decode pool, the boot warmup
+    t0 = time.perf_counter()
+    app = create_app(pipeline)
+    proxy = pipeline.reranker.scorer
+    check(getattr(proxy, "coalesce", False) and pipeline.rerank_in_thread, "create_app did not install the coalescer")
+    check(not pool.active and pool.chunks > 0, "the boot warmup did not run the pool")
+    say(f"create_app (coalescer, kernel build, the pool's warmup over every (tier, bucket)): "
+        f"{time.perf_counter() - t0:.1f} s")
+    chunks0, stats0, joins0, n_disp = pool.chunks, dict(pool.stats), pool.joins, len(proxy.dispatch_sizes)
+    bodies, lat, wall, launches = served(torch, app, queries)
+    st = {k: pool.stats[k] - stats0.get(k, 0) for k in pool.stats}
+    chunks, joins = pool.chunks - chunks0, pool.joins - joins0
+    sizes, owners = list(proxy.dispatch_sizes)[n_disp:], list(proxy.dispatch_requests)[n_disp:]
+    same_ctx = [b["contexts"] == r["contexts"] for b, r in zip(bodies, ref)]
+    same_ans = [b["answer"] == a for b, a in zip(bodies, answers)]
+    say(f"(b) served {SERVE_REQUESTS} requests at concurrency {SERVE_CONCURRENCY}: {latency_line(lat, wall, new_tokens)} "
+        f"[{smi}]")
+    say(f"(b) decode pool: {chunks} chunk dispatches, {st['live_rows'] / max(chunks, 1):.2f} live rows a chunk, "
+        f"{st['row_steps'] / max(st['steps'], 1):.2f} a step, {st['steps']} steps at "
+        f"{st['chunk_ms'] / max(st['steps'], 1):.2f} ms a step with the host sync "
+        f"({st['sync_ms'] / max(st['steps'], 1):.2f} ms a step waiting in it), {joins} joins into a live pool "
+        f"[{smi}]")
+    say(f"(b) coalesced rerank dispatches: {len(sizes)}, sizes {sizes}, requests per dispatch {owners}")
+    say(f"(b) launches during the timed requests: {launches}; contexts equal to run's: {sum(same_ctx)}/"
+        f"{SERVE_REQUESTS}; answers equal to the solo B=1 answers: {sum(same_ans)}/{SERVE_REQUESTS}")
+    if not all(same_ctx):
+        # where the difference comes from: the same requests one at a time
+        # through the coalescer (the cascade re-scores, no other request's
+        # pairs in a batch) against the reference (the carried cascade)
+        pipeline.llm = StubLLM()
+        alone = [asyncio.run(pipeline.run(dict(q)))["contexts"] for q in queries[1:]]
+        pipeline.llm = wrapper
+        for i, ok in enumerate(same_ctx):
+            if not ok:
+                say(f"(b) request {i}: contexts alone through the coalescer equal run's: {alone[i] == ref[i]['contexts']}, "
+                    f"equal the served ones: {alone[i] == bodies[i]['contexts']}")
+    check(all(same_ctx), f"(b) a served response's contexts differ from run's: {same_ctx}")
+    check(all(same_ans), f"(b) a served answer differs from its solo B=1 answer: {same_ans}")
+    check(max(owners, default=0) > 1, "(b) no coalesced rerank dispatch held more than one request's pairs")
+    check(joins > 0, "(b) no request joined a pool that already had a live row")
+    check(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3"] > 0, f"(b) K1, K2 or K3 did not run: {launches}")
+
+    # (c) the same requests through BatchingLocalLLM (for comparison only)
+    pipeline.llm = BatchingLocalLLM(model, window_ms=cfg.serve_window_ms, max_batch=cfg.tpu.local_llm_gen_batch)
+    pipeline.config.tpu.local_llm_warmup = False  # the warm request covers it; nothing compiles per shape
+    bodies_c, lat_c, wall_c, launches_c = served(torch, create_app(pipeline), queries)
+    same_c = sum(b["answer"] == a for b, a in zip(bodies_c, answers))
+    say(f"(c) BatchingLocalLLM (window {cfg.serve_window_ms} ms, batch {cfg.tpu.local_llm_gen_batch}), the same "
+        f"requests: {latency_line(lat_c, wall_c, new_tokens)}; contexts equal to run's: "
+        f"{sum(b['contexts'] == r['contexts'] for b, r in zip(bodies_c, ref))}/{SERVE_REQUESTS}; answers equal to "
+        f"the solo answers: {same_c}/{SERVE_REQUESTS}; launches {launches_c} [{smi}]")
+    proxy.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"peak device memory in phase 10: {peak:.2f} GiB")
+    del pipeline, model, scorer, wrapper, pool
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2552,12 +2953,14 @@ def main() -> int:
             phase_flagship(torch, np, tmp, minicpm.scorer, generator, queries, mods)
             batch_launches = phase_batch_eval(torch, np, tmp, pipeline, minicpm, generator, mods)
             del pipeline
+            serve_launches = phase_serving(torch, np, tmp, minicpm.scorer, generator, smi)
         loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
         check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; phase 10's served requests "
+        f"launched {serve_launches}")
     def entry(name, source, replaces, n, err, ms, plain, bound_ms, bound_by, library_ms):
         return {"name": name, "route": "cuda", "source": f"easyrag_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,

@@ -27,6 +27,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+#: every kernel library of ``csrc/`` on a path of the port (the probes aside)
+KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention", "flash_softcap", "chunkmax")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: ``nvcc``'s stderr per kernel library (ptxas register / spill report)

@@ -180,6 +180,21 @@ class EasyRAGConfig:
         return dataclasses.asdict(self)
 
 
+def parse_pool_tiers(spec: str) -> Optional[List[tuple]]:
+    """Parse ``tpu.local_llm_pool_tiers`` ("2048:2,7680:2") into
+    ``[(bucket, slots), ...]``; "" -> None (single largest-bucket tier)."""
+    if not spec:
+        return None
+    tiers = []
+    for part in str(spec).split(","):
+        bucket, _, slots = part.partition(":")
+        try:
+            tiers.append((int(bucket), int(slots)))
+        except ValueError:
+            raise ValueError(f"tpu.local_llm_pool_tiers expects 'bucket:slots,...', got {spec!r}") from None
+    return tiers
+
+
 def parse_override(spec: str) -> (str, Any):
     """Parse one ``key=value`` CLI override into a typed ``(key, value)``.
 

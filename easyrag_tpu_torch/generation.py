@@ -17,6 +17,7 @@ from __future__ import annotations
 import asyncio
 import random
 import re
+from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -140,10 +141,14 @@ class BatchingLocalLLM:
                 for _, fut in batch:
                     if not fut.done():
                         fut.set_exception(e)
-        if self._pending and (self._flusher is None or self._flusher.done()):
-            # backlog left by the max_batch cut: hand it to a fresh flusher
-            # instead of draining inline (the waiter that triggered this
-            # flush must not block on later batches)
+        flusher = self._flusher
+        if self._pending and (flusher is None or flusher.done() or flusher is asyncio.current_task()):
+            # backlog left by the max_batch cut, or arrivals during this
+            # dispatch (they saw this flusher running and armed none): hand
+            # it to a fresh flusher instead of draining inline (the waiter
+            # that triggered this flush must not block on later batches).
+            # JAX's check leaves out the running flusher itself, so a
+            # request that arrives during the last dispatch waits forever.
             self._flusher = asyncio.ensure_future(self._delayed_flush())
 
     def complete(self, prompt: str) -> CompletionResponse:
@@ -151,13 +156,93 @@ class BatchingLocalLLM:
 
 
 class ContinuousBatchingLocalLLM:
-    """Continuous batching over the on-device decoder: requests join a
-    running decode at chunk boundaries. Its decode pool is not ported yet."""
+    """Continuous batching over the on-device decoder (see
+    ``models/decode_pool.py`` for the design). Same ``acomplete`` contract
+    as :class:`BatchingLocalLLM`, but instead of fusing requests that arrive
+    within a window, requests JOIN a running decode at chunk boundaries, so
+    arrivals staggered by the rerank stage overlap instead of serializing.
+
+    A single driver task owns the pool: it admits queued prompts into free
+    slots (prefill at the prompt's own bucket), dispatches decode chunks,
+    and resolves futures as rows finish. All device work runs in a worker
+    thread so the event loop keeps serving. The pool lives on the model's
+    device: the card unless its caller asked for the CPU.
+    """
 
     def __init__(self, model, pool_size: int = 4, chunk_steps: int = 32, tiers=None) -> None:
-        raise NotImplementedError(
-            "ContinuousBatchingLocalLLM: the continuous-batching decode pool is ROADMAP Queue 1, item 9"
-        )
+        from .models.decode_pool import DecodePool
+
+        self.model = model
+        self.pool = DecodePool(model, pool_size=pool_size, chunk_steps=chunk_steps, tiers=tiers)
+        self._queue: deque = deque()
+        self._driver: Optional[asyncio.Task] = None
+        self.dispatches = 0  # chunk dispatches (observability/tests)
+
+    def warmup(self, buckets=None, batch_sizes=None) -> None:
+        """Run the pool's shapes once at boot (a prefill and insert per
+        (tier, bucket), a chunk per tier). ``batch_sizes`` is accepted for
+        call-site parity with ``TorchCausalLM.warmup``; the pool's batch is
+        fixed."""
+        del batch_sizes
+        self.pool.warmup(buckets=buckets)
+
+    async def acomplete(self, prompt: str) -> CompletionResponse:
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._queue.append((prompt, fut))
+        if self._driver is None or self._driver.done():
+            self._driver = asyncio.ensure_future(self._drive())
+        return await fut
+
+    async def _drive(self) -> None:
+        pool = self.pool
+        while self._queue or pool.active:
+            # admit waiters while a fitting tier has a free slot (a long
+            # prompt must WAIT when only small-tier slots are free, not
+            # fail; head-of-line order is kept so waiters can't starve)
+            while self._queue:
+                prompt, fut = self._queue[0]
+                try:
+                    ids = self.model._encode(prompt)
+                except Exception as e:  # noqa: BLE001 — fail this waiter only
+                    self._queue.popleft()
+                    if not fut.done():
+                        fut.set_exception(e)
+                    continue
+                if not pool.fits(ids):
+                    # no tier holds its bucket: it would wait forever (JAX's
+                    # driver spins here without yielding)
+                    self._queue.popleft()
+                    if not fut.done():
+                        fut.set_exception(ValueError(
+                            f"prompt of {len(ids)} tokens: no pool tier holds its bucket "
+                            f"(tiers {[(t.bucket, t.slots) for t in pool.tiers]})"))
+                    continue
+                if not pool.can_admit(ids):
+                    break
+                self._queue.popleft()
+                try:
+                    await asyncio.to_thread(pool.insert, ids, fut)
+                except Exception as e:  # noqa: BLE001 — fail this waiter only
+                    if not fut.done():
+                        fut.set_exception(e)
+            if not pool.active:
+                continue
+            try:
+                finished = await asyncio.to_thread(pool.run_chunk)
+                self.dispatches += 1
+            except Exception as e:  # noqa: BLE001 — device failure: fail every live row
+                for fut in list(pool.live.values()):
+                    if fut is not None and not fut.done():
+                        fut.set_exception(e)
+                pool.reset()
+                continue
+            for fut, toks in finished:
+                if fut is not None and not fut.done():
+                    fut.set_result(CompletionResponse(text=self.model._decode_row(toks)))
+
+    def complete(self, prompt: str) -> CompletionResponse:
+        return run_sync(self.acomplete(prompt))
 
 
 async def generation(llm, fmt_qa_prompt: str, max_retries: int = 10) -> CompletionResponse:

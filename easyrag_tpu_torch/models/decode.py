@@ -24,7 +24,10 @@ Two phases, as in the JAX package:
   at ``B * Q`` rows than at ``B``, which flips a bf16 rounding of the output
   now and then). So on the card the tokens equal plain greedy's bit for bit
   wherever the projections are row-invariant too (K2's int4 path; a dense
-  cuBLAS projection is not).
+  cuBLAS projection is not). A decode-pool step (``models/decode_pool.py``,
+  :class:`PoolRows`) also takes them one row at a time, each over the row's
+  own ``bucket + max_new`` slots, so a pool row's tokens equal its solo run's
+  at B=1.
 
 What differs from JAX: the KV cache and the token buffers are updated IN
 PLACE (JAX's arrays are immutable); the loops are Python loops that read
@@ -42,7 +45,8 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from functools import partial
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -133,40 +137,84 @@ def _attend_cache(
     return out.view(qn, b, nh * hd).transpose(0, 1)
 
 
-def _position_means(xf: torch.Tensor) -> torch.Tensor:
+def _position_means(xf: torch.Tensor, per_row: bool = False) -> torch.Tensor:
     """``[B, Q, 1]`` f32 means of squares of ``xf`` ``[B, Q, D]``, each
     position's reduced over a ``[B, 1, D]`` slice, as a single step reduces
     its ``[B, 1, D]``: torch splits a row's reduction differently at
-    ``B * Q`` rows than at ``B``."""
+    ``B * Q`` rows than at ``B``. ``per_row`` reduces each ``[1, 1, D]``
+    slice alone, as a single step at B=1 does (the decode pool's rows)."""
     sq = xf.pow(2)
+    if per_row:
+        return torch.cat([
+            torch.cat([sq[r : r + 1, j : j + 1].mean(dim=-1, keepdim=True) for j in range(xf.shape[1])], dim=1)
+            for r in range(xf.shape[0])
+        ])
     return torch.cat([sq[:, j : j + 1].mean(dim=-1, keepdim=True) for j in range(xf.shape[1])], dim=1)
 
 
-def _row_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def _row_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, per_row: bool = False) -> torch.Tensor:
     """:func:`rms_norm` of a verify block ``[B, Q, D]`` with
     :func:`_position_means`; the rest is elementwise, in :func:`rms_norm`'s
     order."""
     xf = x.float()
-    return (xf * torch.rsqrt(_position_means(xf) + eps) * weight.float()).to(x.dtype)
+    return (xf * torch.rsqrt(_position_means(xf, per_row) + eps) * weight.float()).to(x.dtype)
+
+
+class PoolRows(NamedTuple):
+    """The rows of a decode-pool step (``models/decode_pool.py``): row ``r``
+    of the step's input is cache row ``spans[r][0]`` and attends over that
+    row's first ``spans[r][1]`` cache slots, the length a solo run of the
+    row's prompt bucket allocates. ``index`` holds the cache rows on the
+    device. Norms and cache attention then run one row at a time with a
+    single step's shapes at B=1, so each row rounds as its solo run does."""
+
+    index: torch.Tensor  # [R] int64
+    spans: Tuple[Tuple[int, int], ...]
+
+
+def _attend_rows(cfg: DecoderConfig, q: torch.Tensor, cache: Dict[str, torch.Tensor], allowed: torch.Tensor,
+                 rows: PoolRows, dtype) -> torch.Tensor:
+    """:func:`_attend_cache` one pool row at a time over its own cache row
+    and length; ``q`` ``[R, Q, nh, hd]``, ``allowed`` ``[R, Q, T]``."""
+    outs = []
+    for r, (c, t) in enumerate(rows.spans):
+        one = {"k": cache["k"][c : c + 1], "v": cache["v"][c : c + 1]}
+        outs.append(_attend_cache(cfg, q[r : r + 1], *_cache_operands(one, t), allowed[r : r + 1, :, :t], dtype))
+    return torch.cat(outs)
 
 
 def _decode_layer(
     cfg: DecoderConfig,
     p: Dict[str, Any],
     x: torch.Tensor,  # [B, 1, D]
-    pos: int,  # the cache slot every row writes (uniform left-padded layout)
+    pos: int | torch.Tensor,  # the cache slot every row writes, or [B] per-row slots
     kv_valid: torch.Tensor,  # [B, T] bool, this slot included
     cos: torch.Tensor,  # [B, 1, hd]
     sin: torch.Tensor,
     cache: Dict[str, torch.Tensor],
+    rows: Optional[PoolRows] = None,
 ) -> torch.Tensor:
-    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    """One decoder layer over a single-token step. ``pos`` an int: every
+    row writes that slot (the uniform left-padded layout). ``pos`` a ``[B]``
+    tensor: row ``i`` writes its own slot (JAX's ``_cache_write``), in cache
+    row ``rows.index[i]`` when ``rows`` is given, and the norms and the cache
+    attention then run row by row (:class:`PoolRows`)."""
+    norm = partial(_row_norm, per_row=True) if rows is not None else rms_norm
+    q, k, v = qkv_proj(cfg, p["attn"], norm(x, p["input_norm"], cfg.rms_norm_eps))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
-    out = _attend_cache(cfg, q, *_cache_operands(cache, kv_valid.shape[1]), kv_valid[:, None, :], x.dtype)
-    return mlp_residual(cfg, p, x, out)
+    if isinstance(pos, int):
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+    else:
+        index = rows.index if rows is not None else torch.arange(x.shape[0], device=x.device)
+        cache["k"][index, pos] = k[:, 0]
+        cache["v"][index, pos] = v[:, 0]
+    if rows is not None:
+        out = _attend_rows(cfg, q, cache, kv_valid[:, None, :], rows, x.dtype)
+    else:
+        out = _attend_cache(cfg, q, *_cache_operands(cache, kv_valid.shape[1]), kv_valid[:, None, :], x.dtype)
+    return mlp_residual(cfg, p, x, out, norm=norm)
 
 
 def _verify_layer(
@@ -178,6 +226,7 @@ def _verify_layer(
     cos: torch.Tensor,  # [B, Q, hd]
     sin: torch.Tensor,
     cache: Dict[str, torch.Tensor],
+    rows: Optional[PoolRows] = None,
 ) -> torch.Tensor:
     """One decoder layer over a speculative verify block. K/V of every
     position are written first; rejected slots are never marked valid and
@@ -185,15 +234,21 @@ def _verify_layer(
     ``T`` cache slots, its operands made once for the block) and the norms'
     reductions run one position at a time with :func:`_decode_layer`'s
     shapes, so each row rounds as a single step does; the projections take
-    all ``B*Q`` rows at once."""
-    q, k, v = qkv_proj(cfg, p["attn"], _row_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    all ``B*Q`` rows at once. With ``rows`` (a decode pool's step) row ``r``
+    is cache row ``rows.index[r]``, and norms and attention also run one row
+    at a time (:class:`PoolRows`)."""
+    per_row = rows is not None
+    q, k, v = qkv_proj(cfg, p["attn"], _row_norm(x, p["input_norm"], cfg.rms_norm_eps, per_row))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    rows = torch.arange(x.shape[0], device=x.device)[:, None]
-    cache["k"][rows, slots] = k
-    cache["v"][rows, slots] = v
-    out = _attend_cache(cfg, q, *_cache_operands(cache, allowed.shape[-1]), allowed, x.dtype)
-    return mlp_residual(cfg, p, x, out, norm=_row_norm)
+    index = rows.index if per_row else torch.arange(x.shape[0], device=x.device)
+    cache["k"][index[:, None], slots] = k
+    cache["v"][index[:, None], slots] = v
+    if per_row:
+        out = _attend_rows(cfg, q, cache, allowed, rows, x.dtype)
+    else:
+        out = _attend_cache(cfg, q, *_cache_operands(cache, allowed.shape[-1]), allowed, x.dtype)
+    return mlp_residual(cfg, p, x, out, norm=partial(_row_norm, per_row=per_row))
 
 
 def _lm_logits(cfg: DecoderConfig, params: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:

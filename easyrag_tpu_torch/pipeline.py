@@ -17,7 +17,9 @@ JAX, ``rerank_fusion_type`` 0 never queries it (ROADMAP Queue 3). The answer
 comes from the injected LLM, or, with ``local_llm_name`` and
 ``tpu.local_llm_answer``, from the on-device generator
 (``models/decode.py::TorchCausalLM``) behind ``generation.BatchingLocalLLM``,
-as ``easyrag_tpu/pipeline.py:99-127`` wires it. A reranker or an embedder
+or with ``tpu.local_llm_continuous`` behind ``generation.
+ContinuousBatchingLocalLLM`` (the decode pool), as
+``easyrag_tpu/pipeline.py:99-127`` wires them. A reranker or an embedder
 that is not injected is loaded by name through ``models/registry.py``, as
 ``easyrag_tpu/pipeline.py:154-165,324-338`` loads them. The batch entry
 points: ``run_retrieval_batch`` (a whole query set retrieved in 64-row
@@ -36,14 +38,20 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import EasyRAGConfig
+from .config import EasyRAGConfig, parse_pool_tiers
 from .corpus.extractors import run_extractors
 from .corpus.reader import read_data
 from .corpus.splitter import SentenceSplitter
 from .corpus.tokenizer import JiebaTokenizer, default_stopwords, load_stopwords
 from .corpus.views import get_node_content
 from .devices import resolve_device
-from .generation import BatchingLocalLLM, CompletionResponse, OpenAICompatLLM, generation
+from .generation import (
+    BatchingLocalLLM,
+    CompletionResponse,
+    ContinuousBatchingLocalLLM,
+    OpenAICompatLLM,
+    generation,
+)
 from .index.dense import DenseIndex
 from .ops.bm25_resident import DualResidentScorer
 from .retrievers import BM25Retriever, DenseRetriever, HybridRetriever
@@ -60,8 +68,6 @@ def _check_supported(cfg: EasyRAGConfig) -> None:
         (cfg.split_type != 0, "split_type=1: hierarchical auto-merge retrieval is ROADMAP Queue 1, item 7"),
         (cfg.hyde or cfg.hyde_merging, "HyDE is ROADMAP Queue 1, item 7"),
         (bool(cfg.index_artifact_path), "index_artifact_path: the corpus artifact is ROADMAP Queue 1, item 7"),
-        (bool(cfg.local_llm_name and cfg.tpu.local_llm_answer and cfg.tpu.local_llm_continuous),
-         "tpu.local_llm_continuous: the continuous-batching decode pool is ROADMAP Queue 1, item 9"),
         (bool(cfg.compress_method), "compress_method: context compression is ROADMAP Queue 1, item 7"),
         (bool(cfg.tpu.shard_index or cfg.tpu.mesh_shape), "sharded indexes are ROADMAP Queue 1, item 13"),
     ]
@@ -103,11 +109,23 @@ class EasyRAGPipeline:
         if llm is not None:
             self.llm = llm
         elif cfg.local_llm_name and cfg.tpu.local_llm_answer:
-            # the on-device generator answers; concurrent requests share decodes
+            # the on-device generator answers; concurrent requests share
+            # decodes: in a window (BatchingLocalLLM) or by joining a running
+            # decode at chunk boundaries (the decode pool)
+            if cfg.tpu.local_llm_continuous and (cfg.tpu.local_llm_backend != "jax" or not cfg.tpu.local_llm_max_new):
+                raise ValueError(
+                    "tpu.local_llm_continuous needs local_llm_backend=jax and local_llm_max_new set (static pool shapes)"
+                )
             self.local_llm = self._make_local_llm(cfg, self.device)
-            self.llm = BatchingLocalLLM(
-                self.local_llm, window_ms=cfg.serve_window_ms, max_batch=cfg.tpu.local_llm_gen_batch
-            )
+            if cfg.tpu.local_llm_continuous:
+                self.llm = ContinuousBatchingLocalLLM(
+                    self.local_llm, pool_size=cfg.tpu.local_llm_gen_batch, chunk_steps=cfg.tpu.local_llm_chunk_steps,
+                    tiers=parse_pool_tiers(cfg.tpu.local_llm_pool_tiers),
+                )
+            else:
+                self.llm = BatchingLocalLLM(
+                    self.local_llm, window_ms=cfg.serve_window_ms, max_batch=cfg.tpu.local_llm_gen_batch
+                )
         elif cfg.llm_keys:
             self.llm = OpenAICompatLLM(api_keys=cfg.llm_keys, model=cfg.llm_name, api_base=cfg.llm_api_base)
         else:
@@ -166,6 +184,10 @@ class EasyRAGPipeline:
             self.retriever = self.sparse_retriever
         else:
             self.retriever = HybridRetriever(self.dense_retriever, self.sparse_retriever, cfg.retrieval_type, cfg.f_topk)
+        # the serving layer sets rerank_in_thread so concurrent requests
+        # overlap in the rerank stage (their pairs then meet in
+        # serving.coalesce.CoalescingScorer's queue)
+        self.rerank_in_thread = False
         self.reranker = reranker
         if reranker is None and cfg.use_reranker != 0:
             from .models.registry import load_reranker
@@ -324,7 +346,7 @@ class EasyRAGPipeline:
             if self.reranker:
                 emit("reranking", {"candidates": len(fused)})
                 with trace("rerank"):
-                    fused = self.reranker.postprocess_nodes(fused, QueryBundle(query_str=q["query"]))
+                    fused = await self._apply_reranker(fused, QueryBundle(query_str=q["query"]))
             contents = [self.get_node_content(n) for n in fused]
             results.append({"answer": "", "nodes": fused, "contexts": contents})
             if not self.re_only:
@@ -498,7 +520,7 @@ class EasyRAGPipeline:
         if self.reranker:
             emit("reranking", {"candidates": len(node_with_scores)})
             with trace("rerank"):
-                node_with_scores = self.reranker.postprocess_nodes(node_with_scores, query_bundle)
+                node_with_scores = await self._apply_reranker(node_with_scores, query_bundle)
         contents = [self.get_node_content(node) for node in node_with_scores]
         if self.re_only:
             return {"answer": "", "nodes": node_with_scores, "contexts": contents}
@@ -520,7 +542,17 @@ class EasyRAGPipeline:
             return nodes
         emit("reranking", {"candidates": len(nodes)})
         with trace("rerank"):
-            return self.reranker.postprocess_nodes(nodes, query_bundle)
+            return await self._apply_reranker(nodes, query_bundle)
+
+    async def _apply_reranker(self, nodes, query_bundle: QueryBundle):
+        """The rerank stage, in a worker thread when the serving layer set
+        ``rerank_in_thread`` (threads let concurrent requests' pairs meet in
+        the coalescer's queue)."""
+        if self.rerank_in_thread:
+            import asyncio
+
+            return await asyncio.to_thread(self.reranker.postprocess_nodes, nodes, query_bundle)
+        return self.reranker.postprocess_nodes(nodes, query_bundle)
 
     async def _answer(self, query_str: str, nodes) -> Tuple[str, list]:
         contents = [self.get_node_content(n) for n in nodes]

@@ -8,7 +8,8 @@ and send the same QA prompt. The queries cover the dual route, the dir filter
 and a query past the resident term budget (the overflow gather path, K5's
 plain version here). With ``tpu.local_llm_answer`` both pipelines answer with
 their own on-device generator over one tiny saved Qwen2 checkpoint, and the
-answers must be equal. The dense route (``retrieval_type`` 1 and 3,
+answers must be equal, also through each package's decode pool
+(``tpu.local_llm_continuous``). The dense route (``retrieval_type`` 1 and 3,
 ``rerank_fusion_type`` 0-3, with ``re_only`` and with the stub LLM) takes one
 tiny gte-Qwen2 tree, given to the port through ``gte_from_jax``: the same
 nodes, contexts and prompts, the same route dispatch and RRF, and a reboot
@@ -165,6 +166,33 @@ def test_local_llm_answer_matches_jax_pipeline(tmp_path, offline_counter, tiny_c
         assert b["answer"] == a["answer"] and b["answer"]
         assert got.llm.dispatches == n  # one batched generation per query
     assert got.local_llm_generate("w3 w1 w4") == ref.local_llm_generate("w3 w1 w4")
+
+
+@pytest.mark.parametrize("spec", [0, 3])
+def test_local_llm_continuous_matches_jax_pipeline(tmp_path, offline_counter, tiny_causal_checkpoint, spec):
+    """With ``tpu.local_llm_continuous`` both pipelines answer through their
+    own decode pool (two tiers) over one tiny saved Qwen2 checkpoint: the
+    same contexts and answers, plain and speculative."""
+    from easyrag_tpu_torch.generation import ContinuousBatchingLocalLLM
+
+    data_path = make_corpus(tmp_path / "corpus")
+    cfg, port_cfg = configs(
+        data_path=data_path, chunk_size=64, chunk_overlap=10, f_topk_2=3, f_topk_3=0, use_reranker=0,
+        local_llm_name=tiny_causal_checkpoint, cache_path=str(tmp_path / "cache"),
+        tpu=dict(use_pallas=False, local_llm_answer=True, local_llm_quant="", local_llm_max_new=4,
+                 local_llm_gen_batch=2, local_llm_spec=spec, local_llm_continuous=True, local_llm_chunk_steps=2,
+                 local_llm_pool_tiers="256:1,512:1"),
+    )
+    ref = JaxPipeline(cfg)
+    got = EasyRAGPipeline(port_cfg, device="cpu")
+    assert isinstance(got.llm, ContinuousBatchingLocalLLM) and got.llm.model is got.local_llm
+    assert [(t.bucket, t.slots) for t in got.llm.pool.tiers] == [(256, 1), (512, 1)]
+    for q in QUERIES:
+        a = asyncio.run(ref.run(dict(q)))
+        b = asyncio.run(got.run(dict(q)))
+        assert b["contexts"] == a["contexts"]
+        assert b["answer"] == a["answer"] and b["answer"]
+    assert got.llm.dispatches == got.llm.pool.chunks > 0
 
 
 def test_flagship_preset_matches_jax_pipeline(tmp_path, offline_counter, tiny_causal_checkpoint):
@@ -327,10 +355,16 @@ def test_fusion_without_the_dense_route_is_refused(tmp_path, offline_counter):
 
 def test_unported_options_raise(tmp_path, offline_counter):
     data_path = make_corpus(tmp_path / "corpus")
-    for kw in ({"split_type": 1}, {"hyde": True}, {"index_artifact_path": str(tmp_path / "a")},
-               {"local_llm_name": "m", "tpu": tconfig.TPUConfig(local_llm_answer=True, local_llm_continuous=True)}):
+    for kw in ({"split_type": 1}, {"hyde": True}, {"index_artifact_path": str(tmp_path / "a")}):
         with pytest.raises(NotImplementedError):
             EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}), device="cpu")
+    # the decode pool is ported; like JAX's it needs static shapes and the
+    # on-device decoder, and says so before loading a model
+    for tpu in (dict(local_llm_max_new=0), dict(local_llm_max_new=4, local_llm_backend="hf")):
+        with pytest.raises(ValueError, match="local_llm_continuous needs"):
+            EasyRAGPipeline(tconfig.EasyRAGConfig(
+                data_path=data_path, use_reranker=0, local_llm_name="m",
+                tpu=tconfig.TPUConfig(local_llm_answer=True, local_llm_continuous=True, **tpu)), device="cpu")
     # the registry loads an embedder or a reranker named in the config: a
     # name that is no local directory raises before any download
     for kw in ({"retrieval_type": 1}, {"rerank_fusion_type": 1, "retrieval_type": 3}, {"use_reranker": 2}):
@@ -360,6 +394,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     from easyrag_tpu_torch import cli, eval, submit  # noqa: F401
     from easyrag_tpu_torch.models import registry, st_embedder  # noqa: F401
     from easyrag_tpu_torch.ops import chunkmax  # noqa: F401
+    from easyrag_tpu_torch.models import decode_pool  # noqa: F401
+    from easyrag_tpu_torch.serving import api, coalesce, webui  # noqa: F401
 
     DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
     root = {tmp!r}
