@@ -136,8 +136,9 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    bit; launch counts reset just before each of the three runs and read
    just after, and the qps and wall times;
 10. serving: (a) the decode pool (``models/decode_pool.py``) with phase 5's
-   generator at the flagship's settings (tiers 2048:2 and 7680:2, chunks of
-   32 steps, 128 new tokens): six prompts over both tiers join at chunk
+   generator at the flagship's tiers and chunks (2048:2 and 7680:2, 32
+   steps) and 64 new tokens (the served runs take the preset's 128): six
+   prompts over both tiers join at chunk
    boundaries, one finding the 2048 tier full and overflowing into the 7680
    tier; every row's tokens must equal its solo ``generate_greedy`` at B=1,
    plain and with spec 7 (on a difference, the first op that differs when
@@ -156,7 +157,32 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    with ``BatchingLocalLLM``, for comparison. Latency p50/p99, wall,
    requests/s, generated tokens/s, the pool's chunks, live rows and ms a
    step with its host sync, the coalesced batch sizes, each beside the
-   card's ``nvidia-smi`` line.
+   card's ``nvidia-smi`` line;
+11. the pipeline's non-default options: the native index builder against
+   the Python builder on phase 3's content view (the same arrays, both
+   timed); (a) ``ResidentSparseIndex`` over phase 3's content index in f32,
+   bf16 and int8 at the default budget (the reference's caps) and in f32
+   with ``tail="pallas"`` (K5 at its second call site), phase 9's stream
+   (its queries within the 64-term budget) through each: the heavy matrix's
+   device bytes, ms and qps, K5's launches (one a batch with the tail, none
+   without), every 41st stream row equal to its query alone bit for bit,
+   the K5 tail's scores within rtol 1e-6 of the scatter tail's; the int8
+   heavy part on the card equal to the CPU's bit for bit (the gather at 64
+   rows, the s8 product at 4 rows padded to 17) and the int8 top-192 ids
+   equal to a CPU run's on all the stream's queries; K5 against its plain
+   version at the tail's shape (the first batch's light postings), with
+   ``index_add_`` and the bound; (b) ``EasyRAGPipeline`` on
+   ``configs/easyrag.yaml`` over phase 3's corpus with ``split_type`` 1,
+   ``hyde`` and ``hyde_merging``, ``compress_method: bm25_extract``, an
+   ``index_artifact_path`` under a temporary directory and
+   ``tpu.sparse_heavy_dtype: int8``, both indexes from the native builder,
+   phase 3's MiniCPM reranking and phase 5's int4 generator writing the
+   HyDE documents and the answers (32 new tokens); two queries (phase 3's
+   short one, and its long one with the dir filter, past the term budget:
+   K5's overflow path), each split by its timing events (HyDE, retrieval,
+   the HyDE merge, rerank, generation), K1, K2, K3 and K6 launched on each;
+   then a reboot from the artifact (no ingestion, no index build) whose
+   contexts and answers must equal the cold boot's.
 
 Every kernel's entry in the JSON line carries its bound at the timed shape
 (the larger of its operations over the card's peak for their type and its
@@ -171,9 +197,11 @@ K6).
 Prints its total seconds, one JSON line of kernel results (K1's and K5's
 times at the pipeline's shapes, K2's gateup's at R=1, K3's at both call
 sites: the prefill's at B=1, S=7680 and the embedder's at the boot's first
-index-build batch, K4's at B=32, S=1152, K6's at B=64, N=20000; launches
-from phases 3, 5, 6, 7 and 9, each kernel's own main path; phase 10's
-served requests print their own), the ``nvidia-smi`` line, and last
+index-build batch, K4's at B=32, S=1152, K6's at B=64, N=20000, and K5's
+second entry at the resident tail's shape; launches from phases 3, 5, 6, 7
+and 9, each kernel's own main path, and the K5 tail's from phase 11's
+stream; phase 10's served requests print their own), the ``nvidia-smi``
+line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -281,9 +309,14 @@ STREAM_QUERIES, BATCH_QUESTIONS, BATCH_GEN_NEW = 512, 8, 32
 # overflows; then 7680, 7680 and 2048 as slots free), and the served
 # requests at tools/bench_serving.py's defaults
 POOL_TIERS, POOL_CHUNK = "2048:2,7680:2", 32
+# (a)'s new tokens, two chunks a row (the served runs keep the preset's 128;
+# 64 keeps the smoke inside its time limit)
+POOL_MAX_NEW = 64
 POOL_PROMPTS = (1800, 1200, 500, 7000, 6000, 1900)
 SERVE_REQUESTS, SERVE_CONCURRENCY = 12, 4
 SERVE_TIMEOUT_S = 420  # one served run, (b) or (c), fails past this instead of hanging
+# phase 11: HyDE's and the answer's new tokens (phase 5 runs the flagship's 128)
+OPT_GEN_NEW = 32
 # the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -2393,7 +2426,7 @@ def phase_batch_eval(torch, np, tmp, pipeline, reranker, generator, mods):
     by name from a saved checkpoint, ``run_retrieval_batch`` over a 512-query
     stream, ``run_answers_batch`` with the int4 generator. Returns the
     launches of its three runs, each counted from 0 just before the run and
-    read just after."""
+    read just after, and the 512-query stream (phase 11 scores it again)."""
     say("== phase 9: batch evaluation (the registry, the CLI, run_retrieval_batch, run_answers_batch)")
     import gc
 
@@ -2531,7 +2564,7 @@ def phase_batch_eval(torch, np, tmp, pipeline, reranker, generator, mods):
         f"launches {got}")
     del model, batch, singles
     gc.collect()
-    return {key: sum(c[key] for c in counts.values()) for key in mods}
+    return {key: sum(c[key] for c in counts.values()) for key in mods}, stream
 
 
 def serve_queries(np, rng, pipeline, n):
@@ -2579,7 +2612,7 @@ def pool_schedule(pool, prompts, first_wave: int):
     return results, slots
 
 
-def replay_step_ops(torch, cfg, params, ids, bucket, toks, k, t_tier):
+def replay_step_ops(torch, cfg, params, ids, bucket, toks, k, t_tier, max_new):
     """The first (layer, op) whose output differs between a solo step at B=1
     and the pool's step for the same row, at the forward that gives token
     ``k``: the solo state is rebuilt from the solo tokens; the pool's step
@@ -2594,7 +2627,7 @@ def replay_step_ops(torch, cfg, params, ids, bucket, toks, k, t_tier):
     eps, dtype = cfg.rms_norm_eps, params["final_norm"].dtype
     row, mask = td._pad_left(list(ids), bucket, QwenCharTokenizer.pad_token_id)
     s = bucket
-    t = s + GEN_MAX_NEW
+    t = s + max_new
     cache = td.init_cache(cfg, 1, t, dtype, dev)
     with torch.inference_mode():
         td._prefill(cfg, params, torch.tensor([row], dtype=torch.int32, device=dev),
@@ -2653,7 +2686,8 @@ def pool_vs_solo(torch, np, cfg, params, model, smi):
                for i, n in enumerate(POOL_PROMPTS)}
     buckets = {name: model._bucket(len(ids)) for name, ids in prompts.items()}
     t0 = time.perf_counter()
-    solo = {name: solo_greedy(torch, cfg, params, ids, buckets[name], GEN_MAX_NEW) for name, ids in prompts.items()}
+    solo = {name: solo_greedy(torch, cfg, params, ids, buckets[name], model.max_new_tokens)
+            for name, ids in prompts.items()}
     torch.cuda.synchronize()
     say(f"(a) solo greedy at B=1 for {len(prompts)} prompts (buckets {sorted(set(buckets.values()))}): "
         f"{time.perf_counter() - t0:.1f} s [{smi}]")
@@ -2680,8 +2714,9 @@ def pool_vs_solo(torch, np, cfg, params, model, smi):
         for name, ok in equal.items():
             if not ok:
                 k = next(i for i, (a, b) in enumerate(zip(results[name], solo[name])) if a != b)
-                t_tier = next(b for b, _ in sorted(tiers) if b >= buckets[name]) + GEN_MAX_NEW
-                where = replay_step_ops(torch, cfg, params, prompts[name], buckets[name], solo[name], k, t_tier)
+                t_tier = next(b for b, _ in sorted(tiers) if b >= buckets[name]) + model.max_new_tokens
+                where = replay_step_ops(torch, cfg, params, prompts[name], buckets[name], solo[name], k, t_tier,
+                                        model.max_new_tokens)
                 say(f"(a) spec {spec}: row {name} leaves its solo run at token {k}; first op that differs "
                     f"when the step is replayed: {where or 'none (every op of the replayed step agrees)'}")
         check(all(equal.values()), f"(a) spec {spec}: a pool row differs from its solo greedy run")
@@ -2792,7 +2827,10 @@ def phase_serving(torch, np, tmp, scorer16, generator, smi):
                                       max_new_tokens=cfg.tpu.local_llm_max_new, max_batch=cfg.tpu.local_llm_gen_batch,
                                       spec_tokens=cfg.tpu.local_llm_spec, spec_ngram=cfg.tpu.local_llm_spec_ngram)
     before = reset_launches()
-    pool_vs_solo(torch, np, gcfg, gparams, model, smi)
+    pool_vs_solo(torch, np, gcfg, gparams, TorchCausalLM.from_params(
+        gcfg, gparams, QwenCharTokenizer(), QWEN2_EOS, max_new_tokens=POOL_MAX_NEW,
+        max_batch=cfg.tpu.local_llm_gen_batch, spec_tokens=cfg.tpu.local_llm_spec,
+        spec_ngram=cfg.tpu.local_llm_spec_ngram), smi)
     got = before()
     say(f"(a) launches: {got}")
     check(got["K2"] > 0 and got["K3"] > 0, f"(a) K2 or K3 did not run: {got}")
@@ -2908,6 +2946,266 @@ def phase_serving(torch, np, tmp, scorer16, generator, smi):
     return launches
 
 
+def phase_options(torch, np, tmp, sparse, queries, reranker, generator, smi):
+    """Phase 11: (a) the resident index in f32, bf16 and int8 and with the K5
+    tail over phase 3's content index, phase 9's stream through each; (b)
+    ``EasyRAGPipeline`` with the non-default options, cold and from its
+    artifact. Returns ``(launches of the K5 tail's stream, the tail's
+    timings)``."""
+    say("== phase 11: compressed resident BM25 (bf16, int8), the K5 tail, the pipeline's non-default options")
+    import gc
+
+    from easyrag_tpu_torch import native
+    from easyrag_tpu_torch.automerge import AutoMergingRetriever
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.hierarchical import HierarchicalSplitter
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.generation import BatchingLocalLLM
+    from easyrag_tpu_torch.models.decode import TorchCausalLM
+    from easyrag_tpu_torch.ops import bm25_resident as res
+    from easyrag_tpu_torch.ops import bm25_scatter as k5
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+    from easyrag_tpu_torch.rerankers import LLMRerank
+    from easyrag_tpu_torch.utils import events
+
+    from easyrag_tpu_torch.index.sparse import build_sparse_index
+
+    dev = torch.device("cuda")
+    index, tokens, dir_names = sparse["index"], sparse["tokens"], sparse["dirs"]
+    # the native index builder against the Python builder on phase 3's content view
+    built_by = {}
+    for use_native in (True, False):
+        native.builds = 0
+        t0 = time.perf_counter()
+        built_by[use_native] = build_sparse_index(sparse["corpus"], use_native=use_native)
+        built_by[use_native] = (built_by[use_native], time.perf_counter() - t0, native.builds)
+    (nat, t_nat, n_nat), (py, t_py, _) = built_by[True], built_by[False]
+    check(n_nat == 1, "the native index builder did not build")
+    check(nat.stats.vocab == py.stats.vocab == index.stats.vocab and all(
+        np.array_equal(getattr(nat.stats, a), getattr(py.stats, a)) for a in ("doc_lens", "term_offsets", "post_docs", "post_tfs")
+    ) and np.allclose(nat.post_vals, py.post_vals, rtol=1e-12, atol=0) and np.array_equal(nat.post_vals, index.post_vals),
+          "the native builder's arrays differ from the Python builder's")
+    say(f"native index builder, {nat.num_docs} chunks, {nat.num_postings} postings: {t_nat:.2f} s against the Python "
+        f"builder's {t_py:.2f} s ({t_py / t_nat:.1f}x); the same arrays (post_vals within rtol 1e-12) [{smi}]")
+    del built_by, nat, py
+    cfg = load_config(os.path.join(REPO, "configs", "easyrag.yaml"), overrides={"data_path": tmp})
+    T, k = cfg.tpu.max_query_terms, cfg.f_topk_2
+    # the resident path's rows (past the 64-term budget a query takes the gather path)
+    keep = [i for i, t in enumerate(tokens) if len(set(t)) <= T]
+    dir_f = np.asarray([index.dir_vocab.get(d, -2) if d else -1 for d in dir_names], np.int32)[keep]
+
+    # (a) f32, bf16 and int8 heavy storage at the default budget, and the K5 tail
+    gc.collect()
+    torch.cuda.empty_cache()
+    results, built = {}, {}
+    tail_launches, tail_times = 0, None
+    for dtype, tail in (("float32", "xla"), ("bfloat16", "xla"), ("int8", "xla"), ("float32", "pallas")):
+        t0 = time.perf_counter()
+        r = res.ResidentSparseIndex(index, max_query_terms=T, heavy_dtype=dtype, tail=tail,
+                                    heavy_hbm_budget=cfg.tpu.sparse_heavy_hbm_budget,
+                                    light_rows_hbm_budget=cfg.tpu.sparse_light_rows_hbm_budget, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        ids, cnts = r.query_terms_batch([tokens[i] for i in keep])
+        r.stream_from_arrays(ids[:64], cnts[:64], dir_f[:64], k)  # warm-up, not counted
+        torch.cuda.synchronize()
+        k5.launches = 0
+        t0 = time.perf_counter()
+        tv, ti = r.stream_from_arrays(ids, cnts, dir_f, k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = k5.launches
+        n_batches = -(-len(keep) // 64)
+        if tail == "pallas":
+            check(launched == n_batches, f"the K5 tail launched {launched} times over {n_batches} stream batches")
+            tail_launches = launched
+        else:
+            check(launched == 0, f"K5 launched {launched} times on the {dtype} stream without the tail")
+        # a stream row equals its query alone, bit for bit
+        for i in range(0, len(keep), 41):
+            sv, si = r.score_topk([tokens[keep[i]]], k, dir_values=[dir_names[keep[i]]])
+            check(np.array_equal(si[0], ti[i]) and np.array_equal(sv[0].view(np.uint32), tv[i].view(np.uint32)),
+                  f"{dtype}/{tail}: stream row {i} differs from its query alone")
+        heavy_bytes = r.heavy.numel() * r.heavy.element_size()
+        results[(dtype, tail)] = (tv, ti)
+        built[(dtype, tail)] = r
+        same_cap = r.heavy.shape[0] * r.num_docs * 4  # f32 at this cap
+        say(f"(a) {dtype} heavy, {tail} tail: cap {r.light_cap}, layout {r.light_layout}, heavy {tuple(r.heavy.shape)} "
+            f"{heavy_bytes / 2**20:.1f} MiB on the card ({heavy_bytes / same_cap:.3f} of f32's at this cap); built in "
+            f"{t_build:.1f} s; stream of {len(keep)} queries (top-{k}, every 8th filtered): {ms:.1f} ms, "
+            f"{len(keep) / ms * 1e3:.1f} qps; every 41st row equal to its query alone bit for bit; "
+            f"K5 launches {launched} [{smi}]")
+
+    # the K5 tail's ranking against the scatter tail's (f32 sums in another order)
+    (xv, xi), (pv, pi) = results[("float32", "xla")], results[("float32", "pallas")]
+    fin = np.isfinite(xv)
+    check(bool(np.array_equal(fin, np.isfinite(pv)) and np.allclose(pv[fin], xv[fin], rtol=1e-6, atol=0)),
+          "the K5 tail's scores differ from the scatter tail's beyond f32 order")
+    moved = int((pi != xi).sum())
+    say(f"(a) K5 tail vs scatter tail, f32: scores within rtol 1e-6, {moved} of {xi.size} top-{k} positions "
+        f"differ (ties and f32 order)")
+    # bf16 and int8 against the exact f32 ranking: the same docs, nearly
+    for dtype in ("bfloat16", "int8"):
+        qv, qi = results[(dtype, "xla")]
+        overlap = np.mean([len(set(a[np.isfinite(b)]) & set(c[np.isfinite(d)])) / max(1, np.isfinite(d).sum())
+                           for a, b, c, d in zip(qi, qv, xi, xv)])
+        say(f"(a) {dtype} top-{k} against f32's: mean overlap {overlap:.4f}")
+        check(overlap > 0.9, f"the {dtype} ranking lost the f32 ranking (overlap {overlap:.3f})")
+
+    # int8 on the card against the port's CPU run: the heavy part bit for
+    # bit (both forms) and the top-k ids
+    i8 = built[("int8", "xla")]
+    t0 = time.perf_counter()
+    cpu = res.ResidentSparseIndex(index, max_query_terms=T, heavy_dtype="int8",
+                                  heavy_hbm_budget=cfg.tpu.sparse_heavy_hbm_budget,
+                                  light_rows_hbm_budget=cfg.tpu.sparse_light_rows_hbm_budget, device="cpu")
+    ids, cnts = cpu.query_terms_batch([tokens[i] for i in keep])
+    for form, rows in (("gather", 64), ("onehot", 4)):  # 4 rows: the s8 product pads them to 17
+        want = cpu.heavy_part(torch.from_numpy(ids[:rows]), torch.from_numpy(cnts[:rows]), form)
+        got = i8.heavy_part(*i8._upload(ids[:rows], cnts[:rows]), form).cpu()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"the int8 heavy part ({form}) on the card differs from the CPU's")
+    cv, ci = cpu.stream_from_arrays(ids, cnts, dir_f, k)
+    tv8, ti8 = results[("int8", "xla")]
+    check(np.array_equal(ci, ti8), "the int8 top-k ids on the card differ from the CPU run's")
+    check(bool(np.allclose(cv, tv8, rtol=1e-6, atol=0) & np.array_equal(np.isfinite(cv), np.isfinite(tv8))),
+          "the int8 top-k scores on the card differ from the CPU run's beyond f32 order")
+    say(f"(a) int8 on the card vs the CPU: heavy part equal bit for bit (gather at 64 rows, one-hot at 4 rows padded "
+        f"to 17), top-{k} ids of all {len(keep)} queries equal, scores within rtol 1e-6 ({time.perf_counter() - t0:.1f} "
+        f"s with the CPU index build)")
+    del cpu
+
+    # K5 at the tail's shape: the first stream batch's light postings as
+    # _score_topk sends them, [B, TL*C] int32 ids and f32 values
+    tail = built[("float32", "pallas")]
+    ids, cnts = tail.query_terms_batch([tokens[i] for i in keep[:64]])
+    docs, vals = tail.light_postings(*tail._upload(ids, cnts), tail.light_t_bound(ids))
+    args = (docs.reshape(64, -1).to(torch.int32), vals.reshape(64, -1).contiguous(), tail.num_docs)
+    saved = k5.launches
+    err = k5_compare(torch, k5, args)
+    ms5 = cuda_ms(torch, lambda: k5.bm25_scores(*args))
+    plain5 = cuda_ms(torch, lambda: k5.bm25_scores_plain(*args))
+    t_ids, t_vals, N = args
+    B, P = t_ids.shape
+    flat_ids = torch.where((t_ids >= 0) & (t_ids < N), torch.arange(B, device=dev)[:, None] * (N + 1) + t_ids,
+                           torch.arange(B, device=dev)[:, None] * (N + 1) + N).reshape(-1)
+    acc = torch.zeros(B * (N + 1), device=dev)
+    lib5 = cuda_ms(torch, lambda: acc.index_add_(0, flat_ids, t_vals.reshape(-1)))
+    k5.launches = saved
+    nbytes = t_ids.nbytes + t_vals.nbytes + B * N * 4
+    b5 = bound(B * P, nbytes, PEAK_F32)  # one f32 add per posting
+    real = int(((t_ids >= 0) & (t_ids < N)).sum())
+    tail_times = (ms5, plain5, err, *b5, lib5)
+    say(f"(a) K5 at the tail's shape [{B}, {P}] ({P // tail.light_cap} light slots of {tail.light_cap}; {real} real "
+        f"postings, the rest sentinels): max_abs_err {err:.3e}, equal to the CPU's posting-order sums bit for bit; "
+        f"kernel {ms5:.4f} ms ({nbytes / ms5 / 1e6:.1f} GB/s, {b5[0] / ms5:.1%} of the bound), plain {plain5:.4f} ms, "
+        f"index_add_ {lib5:.4f} ms (kernel {lib5 / ms5:.2f}x as fast); bound {b5[0]:.5f} ms ({b5[1]}) [{smi}]")
+    del built, results, tail, i8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the pipeline with every non-default option but sharding
+    gcfg, gparams = generator
+    model = TorchCausalLM.from_params(gcfg, gparams, QwenCharTokenizer(), QWEN2_EOS, max_new_tokens=OPT_GEN_NEW,
+                                      max_batch=GEN_BATCH, spec_tokens=GEN_SPEC)
+    scorer = reranker.scorer
+    with tempfile.TemporaryDirectory(prefix="easyrag_options_") as work:
+        ocfg = load_config(os.path.join(REPO, "configs", "easyrag.yaml"), overrides={
+            "data_path": tmp, "split_type": 1, "hyde": True, "hyde_merging": True, "compress_method": "bm25_extract",
+            "index_artifact_path": os.path.join(work, "artifact"), "tpu.sparse_heavy_dtype": "int8",
+        })
+
+        def boot():
+            split = [SentenceSplitter(n, ocfg.chunk_overlap, token_counter=approx_token_count,
+                                      sentence_splitter=lambda t: [t]) for n in (ocfg.chunk_size * 4, ocfg.chunk_size)]
+            rr = LLMRerank(scorer, top_n=ocfg.r_topk, embed_bs=ocfg.r_embed_bs, embed_type=ocfg.r_embed_type,
+                           use_efficient=ocfg.r_use_efficient)
+            seen = []
+            off = events.on(lambda kind, payload: seen.append(kind))
+            native.builds = 0
+            t0 = time.perf_counter()
+            try:
+                p = EasyRAGPipeline(ocfg, llm=BatchingLocalLLM(model, window_ms=ocfg.serve_window_ms, max_batch=GEN_BATCH),
+                                    reranker=rr, sparse_tokenizer=SparseTokenizer(),
+                                    splitter=HierarchicalSplitter(splitters=split), device=dev)
+                torch.cuda.synchronize()
+            finally:
+                off()
+            return p, time.perf_counter() - t0, seen, native.builds
+
+        def ask(p, label):
+            from easyrag_tpu_torch.ops import chunkmax, flash64, flash_attention, int4_matvec
+
+            mods = {"K1": flash64, "K2": int4_matvec, "K3": flash_attention, "K5": k5, "K6": chunkmax}
+            out = []
+            for name, q in (("short", dict(queries[0][1])), ("long, dir filter", {"query": queries[2][1]["query"],
+                                                                                  "document": queries[1][2]})):
+                stages = []
+                off = events.on(lambda kind, payload: stages.append((payload["name"], payload["seconds"] * 1e3))
+                                if kind == "timing" else None)
+                for mod in mods.values():
+                    mod.launches = 0
+                t0 = time.perf_counter()
+                try:
+                    r = asyncio.run(p.run(q))
+                    torch.cuda.synchronize()
+                finally:
+                    off()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = {key: mod.launches for key, mod in mods.items()}
+                n_terms = len(set(p.sparse_retriever._base._tokenize_query(q["query"] + q["hyde_query"])))
+                split_ms = ", ".join(f"{n} {v:.1f} ms" for n, v in stages)
+                say(f"(b) {label}, query {name!r} ({n_terms} distinct terms with its HyDE document, "
+                    f"{'past' if n_terms > T else 'within'} the {T}-term budget): {ms:.1f} ms ({split_ms}); "
+                    f"{len(r['contexts'])} contexts; launches {got} [{smi}]")
+                check(len(r["contexts"]) == ocfg.r_topk and all(np.isfinite(n.score) for n in r["nodes"]),
+                      f"(b) query {name!r}: wrong result")
+                check(all(got[key] > 0 for key in ("K1", "K2", "K3", "K6")), f"(b) query {name!r} missed a kernel: {got}")
+                check((got["K5"] > 0) == (n_terms > T), f"(b) query {name!r}: K5 launches {got['K5']} at {n_terms} terms")
+                out.append((r, n_terms > T))
+            return out
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        cold, t_cold, seen, n_native = boot()
+        check("ingestion" in seen and "artifact" in seen and os.path.exists(os.path.join(work, "artifact", "manifest.json")),
+              "(b) the cold boot did not ingest the corpus and save its artifact")
+        check(n_native >= 2, f"(b) the native builder built {n_native} indexes at the cold boot (want both routes)")
+        check(isinstance(cold.sparse_retriever, AutoMergingRetriever) and cold._dual_scorer is None
+              and len(cold.all_nodes) > len(cold.nodes), "(b) split_type 1 did not take the hierarchical route")
+        routes = (cold.sparse_retriever._base._resident, cold.path_retriever._resident)
+        check(all(r.heavy_dtype == "int8" and r.heavy.dtype == torch.int8 for r in routes),
+              "(b) tpu.sparse_heavy_dtype did not reach both routes")
+        say(f"(b) cold boot: {len(cold.all_nodes)} nodes ({len(cold.nodes)} leaves), both indexes by the native builder "
+            f"({n_native} builds), int8 heavy {tuple(routes[0].heavy.shape)} cap {routes[0].light_cap}, artifact saved: "
+            f"{t_cold:.1f} s [{smi}]")
+        first = ask(cold, "cold boot")
+        ctx = first[0][0]["contexts"][0]
+        packed = cold.compressor.compress(queries[0][1]["query"], ctx)
+        check(0 < len(packed) <= len(ctx), "(b) the bm25_extract compressor returned nothing")
+        say(f"(b) compressor (bm25_extract, rate {ocfg.compress_rate}): the first context {len(ctx)} -> {len(packed)} chars")
+        del cold
+        gc.collect()
+        torch.cuda.empty_cache()
+        warm, t_warm, seen, n_native = boot()
+        check("artifact" in seen and "ingestion" not in seen and n_native == 0,
+              "(b) the reboot did not come from the artifact")
+        say(f"(b) reboot from the artifact: {len(warm.all_nodes)} nodes, no ingestion, no index build: {t_warm:.1f} s "
+            f"(cold {t_cold:.1f} s) [{smi}]")
+        second = ask(warm, "artifact reboot")
+        for (a, _), (b, _) in zip(first, second):
+            check(a["contexts"] == b["contexts"] and a["answer"] == b["answer"],
+                  "(b) the artifact reboot's contexts or answer differ from the cold boot's")
+        say(f"(b) the artifact reboot gives the cold boot's contexts and answers on {len(first)} of {len(first)} queries; "
+            f"{sum(o for _, o in first)} of {len(first)} HyDE queries past the term budget (K5's overflow path)")
+        del warm
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tail_launches, tail_times
+
+
 def main() -> int:
     try:
         import torch
@@ -2931,29 +3229,51 @@ def main() -> int:
         os.environ.setdefault(var, os.path.join(REPO, "build", sub))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from easyrag_tpu_torch.corpus.views import get_node_content
     from easyrag_tpu_torch.ops import chunkmax as k6
     from easyrag_tpu_torch.ops import flash_attention as k3
     from easyrag_tpu_torch.ops import flash_softcap as k4
     from easyrag_tpu_torch.ops import int4_matvec as k2
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        """Say the seconds a phase took (the smoke must end inside its time limit)."""
+        laps.append(time.perf_counter())
+        say(f"[{name}: {laps[-1] - laps[-2]:.1f} s, {laps[-1] - t_start:.1f} s in all]")
+
     try:
         smi = phase_env(torch)
         phase_build()
         errs = phase_kernels(torch, f64, k5)
         k6_times = phase_chunkmax(torch, k6)
         new_errs, new_times, extra = phase_new_kernels(torch, np, k2, k3)
+        lap("phases 0-2")
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
             pipeline, minicpm, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, k6, tmp)
             timings = phase_main_shapes(torch, np, f64, k5, mask, P)
+            lap("phases 3-4")
             gen_launches, _, generator = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
+            lap("phase 5")
             mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6}
             gemma_launches, k4_err, k4_times, _ = phase_gemma(torch, np, pipeline, queries, mods)
+            lap("phase 6")
             dense_launches, k3e_err, k3e_times, k3e_main = phase_dense(torch, np, tmp, pipeline, minicpm, queries, mods)
+            lap("phase 7")
             phase_flagship(torch, np, tmp, minicpm.scorer, generator, queries, mods)
-            batch_launches = phase_batch_eval(torch, np, tmp, pipeline, minicpm, generator, mods)
-            del pipeline
+            lap("phase 8")
+            batch_launches, stream = phase_batch_eval(torch, np, tmp, pipeline, minicpm, generator, mods)
+            sr = pipeline.sparse_retriever
+            sparse = {"index": sr.index, "tokens": [sr._tokenize_query(q["query"]) for q in stream],
+                      "dirs": [q.get("document") for q in stream],
+                      "corpus": [sr._tokenize_query(get_node_content(n, sr.embed_type)) for n in pipeline.nodes]}
+            del pipeline, sr
+            lap("phase 9")
             serve_launches = phase_serving(torch, np, tmp, minicpm.scorer, generator, smi)
+            lap("phase 10")
+            tail_launches, tail_times = phase_options(torch, np, tmp, sparse, queries, minicpm, generator, smi)
+            lap("phase 11")
         loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
         check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:
@@ -2982,6 +3302,8 @@ def main() -> int:
               k3e_err, *k3e_times[k3e_main]),
         entry("chunk_max", "chunkmax.cu", "tools/exp_chunkmax.py:131", batch_launches["K6"], 0.0,
               *k6_times[(64, 20_000)]),
+        entry("bm25_scores", "bm25_scatter.cu", "easyrag_tpu/ops/bm25_resident.py:141", tail_launches,
+              tail_times[2], tail_times[0], tail_times[1], *tail_times[3:]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,6 +11,10 @@ an injected gte-Qwen2 embedder, ``models/qwen2.py``): the flat cosine index
 reranked and fused by reciprocal rank fusion. Batch evaluation (``cli.py``)
 and serving (``serving/api.py``: the rerank coalescer and, with
 ``tpu.local_llm_continuous``, the decode pool of ``models/decode_pool.py``).
+Every non-default option of the config but sharding: hierarchical chunks with
+auto-merging, HyDE, the corpus artifact, context compression, bf16 or int8
+heavy storage of the resident BM25 index (whose light tail may go through
+K5), and the native C++ index builder (``native.py``, built with ``g++``).
 The package keeps its own copy of the host code it
 needs (config, schema, corpus, templates, ``LLMRerank``, generation, event
 hooks) and imports nothing of ``easyrag_tpu`` and nothing of ``jax``. Every

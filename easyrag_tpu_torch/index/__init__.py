@@ -1,2 +1,2 @@
-"""Index structures: the sparse BM25 index (numpy) and the dense cosine
-index (torch)."""
+"""Index structures: the sparse BM25 index (numpy), the dense cosine index
+(torch) and the on-disk corpus artifact."""

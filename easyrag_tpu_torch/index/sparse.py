@@ -1,10 +1,12 @@
 """Sparse (BM25) index: term dictionary + CSR postings + eager scores, numpy.
 
-A copy of the pure-Python index construction of ``easyrag_tpu/index/sparse.py``
-(``build_sparse_index(..., use_native=False)``): that module is numpy-only,
-but ``easyrag_tpu/index/__init__.py`` imports the JAX dense index, so it
-cannot be imported without JAX. The arrays are identical to that
-module's.
+A copy of ``easyrag_tpu/index/sparse.py``: that module is numpy-only, but
+``easyrag_tpu/index/__init__.py`` imports the JAX dense index, so it cannot
+be imported without JAX. The arrays are identical to that module's, from the
+Python builder or the native one (``native.py``, which
+``build_sparse_index(use_native=None)`` takes when it builds), and the
+on-disk artifact (``save_sparse_index`` / ``load_sparse_index``) has the
+same format, so an index saved by either package loads in the other.
 
 * term ids in first-appearance order; CSR postings term-major
   (``term_offsets[V+1]``, ``post_docs[P]``, ``post_tfs[P]``), docs ascending
@@ -16,6 +18,8 @@ module's.
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -117,12 +121,19 @@ class SparseIndex:
     stats: BM25Stats
     post_vals: np.ndarray  # [P] float64
     bm25_type: int = 0
+    k1: float = 1.5
+    b: float = 0.75
+    epsilon: float = 0.25
     dir_ids: Optional[np.ndarray] = None  # [N] int32 `dir` column
     dir_vocab: Dict[str, int] = field(default_factory=dict)
 
     @property
     def num_docs(self) -> int:
         return self.stats.num_docs
+
+    @property
+    def num_postings(self) -> int:
+        return len(self.stats.post_docs)
 
     def query_term_ids(self, query_tokens: Sequence[str]) -> List[int]:
         """Query tokens -> term ids; unknown tokens dropped, duplicates kept
@@ -184,10 +195,33 @@ def build_sparse_index(
     b: float = 0.75,
     epsilon: float = 0.25,
     dirs: Optional[Sequence[str]] = None,
+    use_native: Optional[bool] = None,
 ) -> SparseIndex:
-    """Build the packed index (the reference's pure-Python path)."""
-    stats = build_stats(corpus_tokens)
-    vals = eager_scores(stats, bm25_type=bm25_type, k1=k1, b=b, epsilon=epsilon)
+    """Build the packed index. ``use_native=None`` takes the C++ builder
+    when it builds (identical arrays), True requires it (raises when it
+    cannot build), False forces the Python builder."""
+    stats = vals = None
+    if use_native is not False:
+        from ..native import build_index_native
+
+        built = build_index_native(corpus_tokens, k1=k1, b=b, epsilon=epsilon, bm25_type=bm25_type)
+        if built is not None:
+            vocab, doc_lens, term_offsets, post_docs, post_tfs, vals = built
+            n = len(corpus_tokens)
+            stats = BM25Stats(
+                num_docs=n,
+                doc_lens=doc_lens,
+                avgdl=float(doc_lens.sum()) / n if n else 0.0,
+                vocab=vocab,
+                term_offsets=term_offsets,
+                post_docs=post_docs,
+                post_tfs=post_tfs,
+            )
+        elif use_native:
+            raise RuntimeError("native index builder requested but unavailable")
+    if stats is None:
+        stats = build_stats(corpus_tokens)
+        vals = eager_scores(stats, bm25_type=bm25_type, k1=k1, b=b, epsilon=epsilon)
     dir_ids = None
     dir_vocab: Dict[str, int] = {}
     if dirs is not None:
@@ -198,6 +232,63 @@ def build_sparse_index(
         stats=stats,
         post_vals=vals.astype(np.float64),
         bm25_type=bm25_type,
+        k1=k1,
+        b=b,
+        epsilon=epsilon,
         dir_ids=dir_ids,
         dir_vocab=dir_vocab,
+    )
+
+
+# -- on-disk artifact (the format of easyrag_tpu/index/sparse.py:307-355) ------
+
+
+def save_sparse_index(index: SparseIndex, path: str) -> None:
+    os.makedirs(path, exist_ok=True)
+    np.savez(
+        os.path.join(path, "sparse_arrays.npz"),
+        doc_lens=index.stats.doc_lens,
+        term_offsets=index.stats.term_offsets,
+        post_docs=index.stats.post_docs,
+        post_tfs=index.stats.post_tfs,
+        post_vals=index.post_vals,
+        dir_ids=index.dir_ids if index.dir_ids is not None else np.zeros(0, np.int32),
+    )
+    meta = {
+        "num_docs": index.stats.num_docs,
+        "avgdl": index.stats.avgdl,
+        "bm25_type": index.bm25_type,
+        "k1": index.k1,
+        "b": index.b,
+        "epsilon": index.epsilon,
+        "vocab": index.stats.vocab,
+        "dir_vocab": index.dir_vocab,
+        "has_dir_ids": index.dir_ids is not None,
+    }
+    with open(os.path.join(path, "sparse_meta.json"), "w", encoding="utf-8") as f:
+        json.dump(meta, f, ensure_ascii=False)
+
+
+def load_sparse_index(path: str) -> SparseIndex:
+    arrays = np.load(os.path.join(path, "sparse_arrays.npz"))
+    with open(os.path.join(path, "sparse_meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    stats = BM25Stats(
+        num_docs=meta["num_docs"],
+        doc_lens=arrays["doc_lens"],
+        avgdl=meta["avgdl"],
+        vocab={k: int(v) for k, v in meta["vocab"].items()},
+        term_offsets=arrays["term_offsets"],
+        post_docs=arrays["post_docs"],
+        post_tfs=arrays["post_tfs"],
+    )
+    return SparseIndex(
+        stats=stats,
+        post_vals=arrays["post_vals"],
+        bm25_type=meta["bm25_type"],
+        k1=meta["k1"],
+        b=meta["b"],
+        epsilon=meta["epsilon"],
+        dir_ids=arrays["dir_ids"] if meta["has_dir_ids"] else None,
+        dir_vocab={k: int(v) for k, v in meta["dir_vocab"].items()},
     )

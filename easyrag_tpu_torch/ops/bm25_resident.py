@@ -4,21 +4,32 @@ The index lives on the device once; a query uploads only its term ids and
 counts. Zipf-aware split, as in the reference:
 
 * **heavy terms** (more than ``light_cap`` postings): their contribution rows
-  form a dense f32 ``[H, N]`` matrix. A query batch's heavy part is a row
-  gather weighted by the counts and summed over the term slots, in full f32
-  (TF32 must be off). JAX also has a one-hot ``[B, H] @ [H, N]`` matmul form
-  and takes it when ``B*T >= H``; the port keeps the gather, as a product
-  and a reduction, at every batch size, because on the card neither cuBLAS
-  form (``bmm``, ``mm``) gives a row the same bits at another batch size,
-  and a batch row must equal the row its query gets alone.
+  form a dense ``[H, N]`` matrix, stored in ``float32``, ``bfloat16`` (each
+  posting rounded once) or ``int8`` (per-doc-column symmetric scales,
+  computed in numpy as the reference does). A query batch's heavy part takes
+  one of the reference's two forms, by its rule (the gather when
+  ``B*T < H``): the **gather** (the query's rows, widened to f32, weighted by
+  the counts and summed over the term slots in slot order) or the **one-hot
+  product** ``counts [B, H] @ heavy [H, N]``. The port computes the one-hot
+  product as that gather for the float dtypes: on the card neither cuBLAS
+  form (``bmm``, ``mm``) gives a row the same bits at another batch size, and
+  a batch row must equal the row its query gets alone. For ``int8`` it is the
+  exact s8 x s8 -> s32 product (``torch._int_mm``); every int8 heavy sum is
+  an integer below 2**24, so both forms give the same bits, scaled once per
+  doc column. ``torch._int_mm`` gets the heavy matrix as a doc-major copy
+  (``models/layers.py::int8_matmul``'s layout): cuBLASLt refuses the s8
+  product of two row-major operands at some shapes (K = 8 at 17 rows on the
+  H100). TF32 must be off.
 * **light terms**: each term's <= ``light_cap`` postings, as a padded
   term-major ``[V+1, C]`` table (``rows``) or through the CSR arrays with a
-  bounded window (``csr``), are scatter-added into the scores.
-
-The light scatter is deterministic on CUDA: one ``index_add_`` per term slot,
-in slot order. A term's doc ids are unique, so no launch has two writes to
-one address and the float atomics never race; the per-doc sum order is the
-term-slot order, the reference's flat scatter order.
+  bounded window (``csr``), gathered as ``[B, TL, C]`` (sentinel doc ``N``,
+  value 0) and added to the heavy part by the ``tail``: ``"xla"`` (the
+  default) adds them into the heavy scores, one ``index_add_`` per term slot
+  in slot order (a term's doc ids are unique, so no launch writes one address
+  twice and the float atomics never race); ``"pallas"`` sends them, as
+  ``[B, TL*C]``, through ``ops/bm25_scatter.py::bm25_scores`` (K5 on the
+  card, its plain version on the CPU) and adds ``heavy + tail``, as the
+  reference's K5 tail does. The two tails agree up to f32 order.
 """
 
 from __future__ import annotations
@@ -30,7 +41,11 @@ import torch
 
 from ..devices import resolve_device
 from ..index.sparse import SparseIndex
+from ..models.layers import int8_matmul
+from . import bm25_scatter
 from .bm25 import filter_topk
+
+HEAVY_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
 
 
 def check_no_tf32() -> None:
@@ -40,17 +55,49 @@ def check_no_tf32() -> None:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False for BM25 scoring")
 
 
-def auto_light_cap(lens: np.ndarray, num_docs: int, itemsize: int, heavy_hbm_budget: int) -> int:
-    """The smallest power-of-two cap (>= 8) whose heavy matrix fits the
-    device-memory budget, else ``num_docs`` (every term light). The
-    reference's cost model on top of this gate was fitted to TPU v5e
-    timings and is not carried over."""
+def auto_light_cap(
+    lens: np.ndarray,
+    num_docs: int,
+    itemsize: int,
+    heavy_hbm_budget: int,
+    max_query_terms: int,
+    kappa_scale: float = 1.0,
+) -> int:
+    """The reference's light/heavy split: among the power-of-two caps (>= 8)
+    whose ``[H, N]`` heavy matrix of ``itemsize``-byte entries fits
+    ``heavy_hbm_budget``, the one of least cost, where a cap's cost weighs
+    the heavy matrix's bytes against ``cap**2`` light-tail work; the walk
+    stops once a cap costs twice the best. ``num_docs`` (every term light)
+    when no cap fits. The two weights are the reference's, copied so that the
+    port splits (and so, with ``bfloat16`` or ``int8`` storage, rounds) the
+    same postings as the reference."""
+    bytes_weight = 1.0 / 899e6
+    kappa = 1.48e-7 * kappa_scale
+    stream_b = 64  # the stream's batch rows
+    best_cost, cap = None, None
     c = 8
     while c < max(num_docs, 16):
-        if int((lens > c).sum()) * num_docs * itemsize <= heavy_hbm_budget:
-            return c
+        n_heavy = int((lens > c).sum())
+        if n_heavy * num_docs * itemsize <= heavy_hbm_budget:
+            cost = n_heavy * num_docs * itemsize * bytes_weight + kappa * stream_b * max_query_terms * c * c
+            if best_cost is None or cost < best_cost:
+                best_cost, cap = cost, c
+            elif cost > 2 * best_cost:
+                break
         c *= 2
-    return num_docs
+    return cap if cap is not None else num_docs
+
+
+def quantize_heavy_int8(heavy: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(q int8 [H, N], scales f32 [N])``: per-doc-column symmetric scales
+    ``col_max / 127`` (1.0 for an empty column) and ``rint(heavy / scale)``,
+    in numpy as the reference computes them."""
+    col_max = np.abs(heavy).max(axis=0) if heavy.size else np.zeros(heavy.shape[1], np.float32)
+    scales = np.where(col_max > 0, col_max / 127.0, 1.0).astype(np.float32)
+    q = np.empty(heavy.shape, np.int8)
+    for lo in range(0, heavy.shape[0], 1024):  # row blocks bound the f32 temporaries
+        q[lo : lo + 1024] = np.rint(heavy[lo : lo + 1024] / scales[None, :])
+    return q, scales
 
 
 class ResidentSparseIndex:
@@ -66,31 +113,33 @@ class ResidentSparseIndex:
         light_rows_hbm_budget: int = 256 * 1024 * 1024,
         device: torch.device | str = "cuda",
     ) -> None:
-        """``light_rows`` forces the light layout (None: ``rows`` when its
-        ``(V+1)*C*8``-byte table fits ``light_rows_hbm_budget``). ``device``
-        is the card unless the caller asks for the CPU."""
-        if heavy_dtype in ("bfloat16", "int8"):
-            raise NotImplementedError(
-                f"heavy_dtype={heavy_dtype!r}: compressed heavy storage is not ported yet (ROADMAP Queue 1, item 2)"
-            )
-        if heavy_dtype != "float32":
+        """``heavy_dtype``: ``float32`` (exact), ``bfloat16`` or ``int8``.
+        ``tail``: ``"xla"`` (None) or ``"pallas"`` (K5; ``"pallas_interpret"``,
+        the reference's CPU spelling, is the same route). ``light_rows``
+        forces the light layout (None: ``rows`` when its ``(V+1)*C*8``-byte
+        table fits ``light_rows_hbm_budget``). Without ``light_cap`` the cap
+        is the reference's: picked for the ``rows`` layout, and picked again
+        for ``csr`` when that cap's table does not fit. ``device`` is the card
+        unless the caller asks for the CPU."""
+        if heavy_dtype not in HEAVY_ITEMSIZE:
             raise ValueError(f"unsupported heavy_dtype {heavy_dtype!r}")
-        if tail in ("pallas", "pallas_interpret"):
-            raise NotImplementedError(
-                f"tail={tail!r}: the K5 light tail is not ported yet (ROADMAP Queue 1, item 2)"
-            )
-        if tail not in (None, "xla"):
+        if tail not in (None, "xla", "pallas", "pallas_interpret"):
             raise ValueError(f"unsupported tail {tail!r}")
+        self.tail = "pallas" if tail in ("pallas", "pallas_interpret") else "xla"
         self.device = resolve_device(device)
         self.host_index = index
         self.num_docs = N = index.num_docs
         self.max_query_terms = max_query_terms
+        self.heavy_dtype = heavy_dtype
 
         offs = index.stats.term_offsets
         lens = np.diff(offs).astype(np.int64)
         V = len(lens)
         if light_cap is None:
-            light_cap = auto_light_cap(lens, N, 4, heavy_hbm_budget)
+            itemsize = HEAVY_ITEMSIZE[heavy_dtype]
+            light_cap = auto_light_cap(lens, N, itemsize, heavy_hbm_budget, max_query_terms, kappa_scale=0.5)
+            if light_rows is False or (V + 1) * light_cap * 8 > light_rows_hbm_budget:
+                light_cap = auto_light_cap(lens, N, itemsize, heavy_hbm_budget, max_query_terms)
         self.light_cap = C = light_cap
         heavy_terms = np.where(lens > C)[0]
         H = ((max(len(heavy_terms), 1) + 7) // 8) * 8
@@ -122,7 +171,16 @@ class ResidentSparseIndex:
             post_docs, post_vals = post_docs[pos], post_vals[pos]
 
         dev = self.device
-        self.heavy = torch.from_numpy(heavy).to(dev)
+        self.heavy_scales = None
+        if heavy_dtype == "int8":
+            q, scales = quantize_heavy_int8(heavy)
+            del heavy
+            self.heavy = torch.from_numpy(q).to(dev)
+            self.heavy_scales = torch.from_numpy(scales).to(dev)
+        elif heavy_dtype == "bfloat16":
+            self.heavy = torch.from_numpy(heavy).to(torch.bfloat16).to(dev)
+        else:
+            self.heavy = torch.from_numpy(heavy).to(dev)
         self.t_heavy_row = torch.from_numpy(heavy_row).to(dev)
         self.t_starts = torch.from_numpy(starts).to(dev)
         self.t_light_lens = torch.from_numpy(light_lens).to(dev)
@@ -188,6 +246,39 @@ class ResidentSparseIndex:
 
     # -- device scoring ---------------------------------------------------------
 
+    def heavy_part(self, term_ids: torch.Tensor, counts: torch.Tensor, form: str = "auto") -> torch.Tensor:
+        """The heavy terms' f32 scores ``[B, N]`` of a prepped batch.
+        ``form``: ``"auto"`` (the reference's rule: the gather when
+        ``B*T < H``), ``"gather"`` or ``"onehot"``; see the module doc."""
+        B, T = term_ids.shape
+        H = self.heavy.shape[0]
+        hrow = self.t_heavy_row[term_ids]
+        is_heavy = hrow >= 0
+        onehot = B * T >= H if form == "auto" else form == "onehot"
+        if onehot and self.heavy_dtype == "int8":
+            # counts <= 127 are exact in s8 (clipped as the reference does)
+            a = torch.zeros(B, H + 1, dtype=torch.float32, device=self.device)
+            a.index_put_((torch.arange(B, device=self.device)[:, None].expand(B, T), torch.where(is_heavy, hrow, H)),
+                         torch.where(is_heavy, counts, 0.0), accumulate=True)
+            a8 = a[:, :H].clamp(0, 127).to(torch.int8)
+            return int8_matmul(a8, self.heavy.t().contiguous()).float() * self.heavy_scales
+        w = torch.where(is_heavy, counts, 0.0)
+        g = self.heavy[torch.where(is_heavy, hrow, 0)].float()  # [B, T, N]
+        scores = (w[:, :, None] * g).sum(1)
+        return scores * self.heavy_scales if self.heavy_scales is not None else scores
+
+    def light_postings(self, term_ids: torch.Tensor, counts: torch.Tensor, light_t: int):
+        """The first ``light_t`` term slots' light postings ``(docs [B, TL,
+        C], vals [B, TL, C])``, the values weighted by the counts; a pad or
+        heavy slot gathers the sentinel (doc ``N``, value 0)."""
+        lt_ids, lt_counts = term_ids[:, :light_t], counts[:, :light_t]
+        if self.light_layout == "rows":
+            return self.post_docs[lt_ids], self.post_vals[lt_ids] * lt_counts[:, :, None]
+        win = torch.arange(self.light_cap, device=self.device)
+        valid = win < self.t_light_lens[lt_ids][:, :, None]
+        pos = torch.where(valid, self.t_starts[lt_ids][:, :, None] + win, self.P)
+        return self.post_docs[pos], self.post_vals[pos] * lt_counts[:, :, None]
+
     def _score_topk(
         self,
         term_ids: torch.Tensor,  # [B, T] int64
@@ -195,37 +286,30 @@ class ResidentSparseIndex:
         k: int,
         dir_filter: Optional[torch.Tensor] = None,  # [B] int32
         light_t: Optional[int] = None,
+        heavy_form: str = "auto",
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Scores + filter + top-k for one batch of prepped queries; a row's
         scores have the same bits at any batch size."""
         if self.device.type == "cuda":
             check_no_tf32()
         B, T = term_ids.shape
-        N, C = self.num_docs, self.light_cap
-        hrow = self.t_heavy_row[term_ids]
-        is_heavy = hrow >= 0
-        w = torch.where(is_heavy, counts, 0.0)
-        g = self.heavy[torch.where(is_heavy, hrow, 0)]  # [B, T, N]
-        scores = (w[:, :, None] * g).sum(1)
-
+        N = self.num_docs
+        scores = self.heavy_part(term_ids, counts, heavy_form)
         TL = T if light_t is None else light_t
-        lt_ids, lt_counts = term_ids[:, :TL], counts[:, :TL]
-        if self.light_layout == "rows":
-            docs = self.post_docs[lt_ids]  # [B, TL, C]; pad slots -> N
-            vals = self.post_vals[lt_ids] * lt_counts[:, :, None]
+        docs, vals = self.light_postings(term_ids, counts, TL)
+        if self.tail == "pallas":
+            if TL:  # no light slot: the tail adds nothing
+                scores = scores + bm25_scatter.bm25_scores(
+                    docs.reshape(B, -1).to(torch.int32), vals.reshape(B, -1).contiguous(), N
+                )
         else:
-            win = torch.arange(C, device=self.device)
-            valid = win < self.t_light_lens[lt_ids][:, :, None]
-            pos = torch.where(valid, self.t_starts[lt_ids][:, :, None] + win, self.P)
-            docs = self.post_docs[pos]
-            vals = self.post_vals[pos] * lt_counts[:, :, None]
-        # flat scatter into [B*N + 1]; sentinel docs route to the last slot
-        flat = torch.cat([scores.reshape(-1), scores.new_zeros(1)])
-        b_off = torch.arange(B, device=self.device)[:, None] * N
-        for t in range(TL):
-            d = docs[:, t, :]
-            flat.index_add_(0, torch.where(d < N, b_off + d, B * N).reshape(-1), vals[:, t, :].reshape(-1))
-        scores = flat[: B * N].reshape(B, N)
+            # flat scatter into [B*N + 1]; sentinel docs route to the last slot
+            flat = torch.cat([scores.reshape(-1), scores.new_zeros(1)])
+            b_off = torch.arange(B, device=self.device)[:, None] * N
+            for t in range(TL):
+                d = docs[:, t, :]
+                flat.index_add_(0, torch.where(d < N, b_off + d, B * N).reshape(-1), vals[:, t, :].reshape(-1))
+            scores = flat[: B * N].reshape(B, N)
         return filter_topk(scores, k, self.dir_col, dir_filter)
 
     def _upload(self, ids: np.ndarray, cnts: np.ndarray):

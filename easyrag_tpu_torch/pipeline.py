@@ -13,7 +13,15 @@ reranked on its own, and reciprocal rank fusion keeps ``r_topk_1`` contexts
 for one answer (type 1), or each route answers and the longer answer (2) or
 both (3) are returned. ``retrieval_type`` 1 or 3 builds the dense index at
 boot (or reloads its artifact from ``cache_path/collection_name``); as in
-JAX, ``rerank_fusion_type`` 0 never queries it (ROADMAP Queue 3). The answer
+JAX, ``rerank_fusion_type`` 0 never queries it (ROADMAP Queue 3). The
+options of ``easyrag_tpu/pipeline.py`` are all here but sharding:
+``split_type`` 1 (hierarchical chunks, BM25 over the leaves, auto-merging),
+HyDE (``hyde``: the LLM's hypothetical document appended to the query;
+``hyde_merging``: a second prompt before the rerank), the corpus artifact
+(``index_artifact_path``: nodes and both sparse indexes, reloaded while the
+corpus fingerprint matches), ``compress_method`` (the compressor is built,
+and ``run`` does not call it, as in JAX) and ``tpu.sparse_heavy_dtype`` (the
+resident index's heavy storage, both routes). The answer
 comes from the injected LLM, or, with ``local_llm_name`` and
 ``tpu.local_llm_answer``, from the on-device generator
 (``models/decode.py::TorchCausalLM``) behind ``generation.BatchingLocalLLM``,
@@ -25,9 +33,10 @@ that is not injected is loaded by name through ``models/registry.py``, as
 points: ``run_retrieval_batch`` (a whole query set retrieved in 64-row
 batches, the sparse dual route or the fusion route's dense and sparse lists)
 and ``run_answers_batch`` (that retrieval, each query reranked, every answer
-from ``TorchCausalLM.generate_batch``), each row equal to ``run``'s. Every
-other option of the config raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+from ``TorchCausalLM.generate_batch``), each row equal to ``run``'s; under
+HyDE, or over the auto-merging retriever, they run ``run`` query by query, as
+JAX's gates do. Sharded indexes raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -38,8 +47,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .automerge import AutoMergingRetriever
+from .compressors import ContextCompressor
 from .config import EasyRAGConfig, parse_pool_tiers
 from .corpus.extractors import run_extractors
+from .corpus.hierarchical import HierarchicalSplitter, get_leaf_nodes
 from .corpus.reader import read_data
 from .corpus.splitter import SentenceSplitter
 from .corpus.tokenizer import JiebaTokenizer, default_stopwords, load_stopwords
@@ -49,14 +61,22 @@ from .generation import (
     BatchingLocalLLM,
     CompletionResponse,
     ContinuousBatchingLocalLLM,
+    HyDETransform,
     OpenAICompatLLM,
     generation,
 )
+from .index.artifact import CorpusArtifact
 from .index.dense import DenseIndex
 from .ops.bm25_resident import DualResidentScorer
 from .retrievers import BM25Retriever, DenseRetriever, HybridRetriever
 from .schema import NodeWithScore, QueryBundle, build_nodeid2idx
-from .templates import MERGE_TEMPLATE, QA_TEMPLATE, PromptTemplate
+from .templates import (
+    HYDE_PROMPT_MODIFIED_MERGING,
+    HYDE_PROMPT_MODIFIED_V2,
+    MERGE_TEMPLATE,
+    QA_TEMPLATE,
+    PromptTemplate,
+)
 from .utils.events import emit, trace
 
 
@@ -64,16 +84,27 @@ def _check_supported(cfg: EasyRAGConfig) -> None:
     """Say which ROADMAP item covers an option the port does not have yet."""
     if cfg.rerank_fusion_type != 0 and cfg.retrieval_type == 2:
         raise ValueError(f"rerank_fusion_type={cfg.rerank_fusion_type} fuses the dense route: set retrieval_type 1 or 3")
-    unported = [
-        (cfg.split_type != 0, "split_type=1: hierarchical auto-merge retrieval is ROADMAP Queue 1, item 7"),
-        (cfg.hyde or cfg.hyde_merging, "HyDE is ROADMAP Queue 1, item 7"),
-        (bool(cfg.index_artifact_path), "index_artifact_path: the corpus artifact is ROADMAP Queue 1, item 7"),
-        (bool(cfg.compress_method), "compress_method: context compression is ROADMAP Queue 1, item 7"),
-        (bool(cfg.tpu.shard_index or cfg.tpu.mesh_shape), "sharded indexes are ROADMAP Queue 1, item 13"),
-    ]
-    for bad, why in unported:
-        if bad:
-            raise NotImplementedError(why)
+    if cfg.tpu.shard_index or cfg.tpu.mesh_shape:
+        raise NotImplementedError("sharded indexes are ROADMAP Queue 1, item 13")
+
+
+def _corpus_fingerprint(data_path: str) -> str:
+    """Fingerprint of the corpus tree (the ``.txt`` files' names, sizes and
+    mtimes), so that a stale artifact is rebuilt when a file changes
+    (``easyrag_tpu/pipeline.py:45-60``)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    if os.path.isdir(data_path):
+        for dirpath, dirnames, filenames in os.walk(data_path):
+            dirnames.sort()
+            for name in sorted(filenames):
+                if not name.endswith(".txt"):
+                    continue
+                p = os.path.join(dirpath, name)
+                st = os.stat(p)
+                h.update(f"{os.path.relpath(p, data_path)}:{st.st_size}:{st.st_mtime_ns}".encode())
+    return h.hexdigest()[:16]
 
 
 class EasyRAGPipeline:
@@ -90,8 +121,11 @@ class EasyRAGPipeline:
     ) -> None:
         """``sparse_tokenizer`` tokenizes for BM25 (default: jieba, as the
         reference); ``splitter`` chunks the documents (default: the
-        reference's ``SentenceSplitter(chunk_size, chunk_overlap)``, whose
-        default token counter wants a tiktoken table). ``embed_model`` is the
+        reference's ``SentenceSplitter(chunk_size, chunk_overlap)``, or with
+        ``split_type`` 1 ``HierarchicalSplitter([chunk_size * 4,
+        chunk_size], chunk_overlap)``, whose default token counter wants a
+        tiktoken table). The corpus artifact's fingerprint (JAX's) does not
+        cover an injected tokenizer or splitter. ``embed_model`` is the
         dense route's embedder (``models/qwen2.py::GTEEmbedder``), used with
         ``retrieval_type`` 1 or 3; without it, ``embedding_name`` is loaded
         through the registry, as ``reranker_name`` is without ``reranker``
@@ -105,6 +139,7 @@ class EasyRAGPipeline:
         self.re_only = cfg.re_only
         self.llm_embed_type = cfg.llm_embed_type
         self.ans_refine_type = cfg.ans_refine_type
+        self.hyde, self.hyde_merging = cfg.hyde, cfg.hyde_merging
         self.local_llm = None
         if llm is not None:
             self.llm = llm
@@ -132,18 +167,47 @@ class EasyRAGPipeline:
             self.llm = None
         self.qa_template = PromptTemplate(QA_TEMPLATE)
         self.merge_template = PromptTemplate(MERGE_TEMPLATE)
+        self.hyde_transform = HyDETransform(self.llm, HYDE_PROMPT_MODIFIED_V2) if self.hyde else None
+        self.hyde_transform_merging = (
+            HyDETransform(self.llm, HYDE_PROMPT_MODIFIED_MERGING) if self.hyde_merging else None
+        )
 
+        # corpus -> nodes, or the artifact's nodes and sparse indexes while
+        # its fingerprint matches (easyrag_tpu/pipeline.py:167-202)
         data_path = os.path.abspath(cfg.data_path)
+        fingerprint = {
+            "data_path": data_path,
+            "corpus": _corpus_fingerprint(data_path),
+            "chunk_size": cfg.chunk_size,
+            "chunk_overlap": cfg.chunk_overlap,
+            "split_type": cfg.split_type,
+            "f_embed_type_2": cfg.f_embed_type_2,
+            "bm25_type": cfg.bm25_type,
+            "f_topk_3": cfg.f_topk_3,
+        }
+        artifact = CorpusArtifact(cfg.index_artifact_path) if cfg.index_artifact_path else None
         self.stp_words = load_stopwords(cfg.stopwords_path) if cfg.stopwords_path else default_stopwords()
         self.sparse_tk = sparse_tokenizer if sparse_tokenizer is not None else JiebaTokenizer()
-        if documents is None:
-            documents = read_data(data_path)
-        emit("ingestion", {"documents": len(documents)})
-        if splitter is None:
-            splitter = SentenceSplitter(chunk_size=cfg.chunk_size, chunk_overlap=cfg.chunk_overlap)
-        self.nodes = splitter.parse_documents(documents)
-        run_extractors(self.nodes, data_path=data_path)
-        emit("chunking", {"nodes": len(self.nodes)})
+        loaded = artifact is not None and not cfg.reindex and artifact.matches(fingerprint)
+        sparse_content = sparse_path = None
+        if loaded:
+            self.nodes = artifact.load_nodes()
+            self.all_nodes = artifact.load_all_nodes() or self.nodes
+            sparse_content, sparse_path = artifact.load_sparse("content"), artifact.load_sparse("path")
+            emit("artifact", {"loaded_nodes": len(self.nodes)})
+        else:
+            if documents is None:
+                documents = read_data(data_path)
+            emit("ingestion", {"documents": len(documents)})
+            if splitter is None and cfg.split_type == 1:
+                splitter = HierarchicalSplitter(chunk_sizes=[cfg.chunk_size * 4, cfg.chunk_size],
+                                                chunk_overlap=cfg.chunk_overlap)
+            elif splitter is None:
+                splitter = SentenceSplitter(chunk_size=cfg.chunk_size, chunk_overlap=cfg.chunk_overlap)
+            self.all_nodes = splitter.parse_documents(documents)
+            run_extractors(self.all_nodes, data_path=data_path)
+            emit("chunking", {"nodes": len(self.all_nodes)})
+            self.nodes = get_leaf_nodes(self.all_nodes) if cfg.split_type == 1 else self.all_nodes
         self.nodeid2idx = build_nodeid2idx(self.nodes)
         self._ctx_cache: Dict[int, str] = {}
 
@@ -172,12 +236,33 @@ class EasyRAGPipeline:
             light_rows_hbm_budget=cfg.tpu.sparse_light_rows_hbm_budget,
             device=self.device,
         )
-        self.sparse_retriever = BM25Retriever(similarity_top_k=cfg.f_topk_2, embed_type=cfg.f_embed_type_2, **route)
+        self.sparse_retriever = BM25Retriever(
+            similarity_top_k=cfg.f_topk_2, embed_type=cfg.f_embed_type_2, index=sparse_content, **route
+        )
         self.path_retriever = None
         self._dual_scorer = None
         if cfg.f_topk_3 != 0:
-            self.path_retriever = BM25Retriever(similarity_top_k=cfg.f_topk_3, embed_type=5, **route)  # know_path
+            self.path_retriever = BM25Retriever(
+                similarity_top_k=cfg.f_topk_3, embed_type=5, index=sparse_path, **route  # know_path
+            )
             self._dual_scorer = DualResidentScorer(self.sparse_retriever._resident, self.path_retriever._resident)
+        if artifact is not None and not loaded:
+            artifact.save(self.nodes, fingerprint, sparse_content=self.sparse_retriever.index,
+                          sparse_path=self.path_retriever.index if self.path_retriever else None,
+                          all_nodes=self.all_nodes)
+            emit("artifact", {"saved_nodes": len(self.nodes)})
+        # the compressor scores sentences with the content route's BM25; JAX
+        # hands it the auto-merging wrapper under split_type 1, which has no
+        # get_scores, so the port hands it the route itself
+        self.compressor = (
+            ContextCompressor(cfg.compress_method, cfg.compress_rate, bm25_retriever=self.sparse_retriever,
+                              embed_model=self.embed_model)
+            if cfg.compress_method
+            else None
+        )
+        if cfg.split_type == 1:
+            self.sparse_retriever = AutoMergingRetriever(self.sparse_retriever, self.all_nodes, simple_ratio_thresh=0.4)
+            self._dual_scorer = None  # auto-merge takes the per-route path
         if cfg.retrieval_type == 1:
             self.retriever = self.dense_retriever
         elif cfg.retrieval_type == 2:
@@ -277,11 +362,18 @@ class EasyRAGPipeline:
 
     async def run(self, query: Dict[str, Any]) -> Dict[str, Any]:
         """``{"query": ..., "document": optional dir}`` ->
-        ``{"answer", "nodes", "contexts"}``."""
+        ``{"answer", "nodes", "contexts"}``. Under ``hyde`` the LLM's
+        hypothetical document is set as ``query["hyde_query"]`` first."""
+        if self.hyde:
+            with trace("hyde"):
+                hyde_bundle = await self.hyde_transform.acall(query["query"])
+            query["hyde_query"] = hyde_bundle.custom_embedding_strs[0]
         filters, self.filter_dict = self.build_filters(query)
         self.sparse_retriever.filter_dict = self.filter_dict
         if self.config.rerank_fusion_type == 0:
-            return await self.generation_with_knowledge_retrieval(query_str=query["query"])
+            return await self.generation_with_knowledge_retrieval(
+                query_str=query["query"], hyde_query=query.get("hyde_query", "")
+            )
         self.dense_retriever.filters = filters
         return await self.generation_with_rerank_fusion(query_str=query["query"])
 
@@ -293,12 +385,12 @@ class EasyRAGPipeline:
         reranker, the default path scores both sparse routes in 64-row
         batches (:meth:`_sparse_fused_batch`) and the fusion path embeds the
         queries at once and streams the dense and sparse lists
-        (:meth:`_run_fusion_retrieval_batch`); anything else runs ``run``
-        query by query."""
-        if self.reranker is None and self.config.rerank_fusion_type != 0:
-            return self._run_fusion_retrieval_batch(queries)
-        if self.reranker is not None:
+        (:meth:`_run_fusion_retrieval_batch`); anything else (a reranker,
+        HyDE, the auto-merging retriever) runs ``run`` query by query."""
+        if self.reranker is not None or self.hyde or not isinstance(self.sparse_retriever, BM25Retriever):
             return [await self.run(dict(q)) for q in queries]
+        if self.config.rerank_fusion_type != 0:
+            return self._run_fusion_retrieval_batch(queries)
         return [
             {"answer": "", "nodes": fused, "contexts": [self.get_node_content(n) for n in fused]}
             for fused in self._sparse_fused_batch(queries)
@@ -324,11 +416,15 @@ class EasyRAGPipeline:
         every prompt through the local generator's ``generate_batch``
         (``gen_batch``-row decodes). Each row equals ``run``'s. It stages
         only on the default path and where ``run`` itself answers with that
-        generator (or with ``re_only``); otherwise it runs ``run`` query by
-        query."""
+        generator (or with ``re_only``), without HyDE and over the plain
+        BM25 route; otherwise it runs ``run`` query by query."""
         gen = self.local_llm
-        stageable = self.config.rerank_fusion_type == 0 and (
-            self.re_only or (hasattr(gen, "generate_batch") and self._answers_via_local_llm())
+        stageable = (
+            self.config.rerank_fusion_type == 0
+            and not self.hyde
+            and not self.hyde_merging
+            and isinstance(self.sparse_retriever, BM25Retriever)
+            and (self.re_only or (hasattr(gen, "generate_batch") and self._answers_via_local_llm()))
         )
         if not stageable:
             return [await self.run(dict(q)) for q in queries]
@@ -505,10 +601,13 @@ class EasyRAGPipeline:
 
         return to_nodes(tv1[0], ti1[0]), to_nodes(tv2[0], ti2[0])
 
-    async def generation_with_knowledge_retrieval(self, query_str: str) -> Dict[str, Any]:
+    async def generation_with_knowledge_retrieval(self, query_str: str, hyde_query: str = "") -> Dict[str, Any]:
         """Sparse dual route -> fusion -> rerank -> QA generation -> optional
-        answer refinement."""
-        query_bundle = QueryBundle(query_str=query_str)
+        answer refinement (``easyrag_tpu/pipeline.py:901-953``). Retrieval
+        scores ``query_str + hyde_query``; with ``hyde_merging`` the LLM
+        rewrites the rerank query from the question, the hypothetical
+        document and the top context."""
+        query_bundle = QueryBundle(query_str=query_str + hyde_query)
         with trace("retrieval"):
             routes = self._dual_retrieve(query_bundle)
             if routes is None:
@@ -518,6 +617,14 @@ class EasyRAGPipeline:
                 )
             node_with_scores = HybridRetriever.fusion(list(routes))
         if self.reranker:
+            if self.hyde_merging and self.hyde:
+                seed = (
+                    f"问题：{query_str},\n 可能有用的提示文档:{hyde_query},\n "
+                    f"检索得到的相关上下文：{self.get_node_content(node_with_scores[0])}"
+                )
+                with trace("hyde_merging"):
+                    merged = await self.hyde_transform_merging.acall(seed)
+                query_bundle = QueryBundle(query_str=query_str + "\n" + merged.custom_embedding_strs[0])
             emit("reranking", {"candidates": len(node_with_scores)})
             with trace("rerank"):
                 node_with_scores = await self._apply_reranker(node_with_scores, query_bundle)

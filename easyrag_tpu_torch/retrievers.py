@@ -22,7 +22,7 @@ from .corpus.tokenizer import tokenize_and_remove_stopwords
 from .corpus.views import get_node_content
 from .devices import resolve_device
 from .index.dense import DenseIndex
-from .index.sparse import build_sparse_index
+from .index.sparse import SparseIndex, build_sparse_index
 from .ops.bm25 import bm25_score_topk
 from .ops.bm25_resident import ResidentSparseIndex
 from .schema import NodeWithScore, QueryBundle, TextNode
@@ -31,7 +31,11 @@ from .utils.events import trace
 
 
 class BM25Retriever:
-    """Sparse retriever over one ``embed_type`` view of the node list."""
+    """Sparse retriever over one ``embed_type`` view of the node list. Its
+    index is ``index`` (a prebuilt ``SparseIndex``, as the corpus artifact
+    loads it) or is built from the nodes, through the native builder when it
+    builds (``build_sparse_index(use_native=None)``, as JAX's retriever
+    builds); ``heavy_dtype`` is the resident index's heavy storage."""
 
     def __init__(
         self,
@@ -48,6 +52,7 @@ class BM25Retriever:
         heavy_hbm_budget: int = 512 * 1024 * 1024,
         light_rows_hbm_budget: int = 256 * 1024 * 1024,
         device: torch.device | str = "cuda",
+        index: Optional[SparseIndex] = None,
     ) -> None:
         self._nodes = nodes
         self._tokenizer = tokenizer
@@ -55,19 +60,21 @@ class BM25Retriever:
         self._similarity_top_k = similarity_top_k
         self.embed_type = embed_type
         self.bm25_type = bm25_type
+        self.k1, self.b, self.epsilon = 1.5, 0.75, 0.25
         self.max_query_postings = max_query_postings
         self.use_pallas = use_pallas
         self.device = resolve_device(device)
         self.filter_dict: Optional[Dict[str, str]] = None
-        corpus_tokens = [
-            tokenize_and_remove_stopwords(tokenizer, get_node_content(node, embed_type), stopwords)
-            for node in nodes
-        ]
-        self.index = build_sparse_index(
-            corpus_tokens,
-            bm25_type=bm25_type,
-            dirs=[node.metadata.get("dir", "") for node in nodes],
-        )
+        if index is None:
+            corpus_tokens = [
+                tokenize_and_remove_stopwords(tokenizer, get_node_content(node, embed_type), stopwords)
+                for node in nodes
+            ]
+            index = build_sparse_index(
+                corpus_tokens, bm25_type=bm25_type, k1=self.k1, b=self.b, epsilon=self.epsilon,
+                dirs=[node.metadata.get("dir", "") for node in nodes],
+            )
+        self.index = index
         self._resident = ResidentSparseIndex(
             self.index,
             max_query_terms=max_query_terms,
@@ -87,7 +94,8 @@ class BM25Retriever:
         index = self.index
         if docs is not None:
             corpus_tokens = [tokenize_and_remove_stopwords(self._tokenizer, d, self.stopwords) for d in docs]
-            index = build_sparse_index(corpus_tokens, bm25_type=self.bm25_type)
+            index = build_sparse_index(corpus_tokens, bm25_type=self.bm25_type, k1=self.k1, b=self.b,
+                                       epsilon=self.epsilon)
         return index.get_scores_host(self._tokenize_query(query))
 
     def _dir_filter_value(self) -> int:

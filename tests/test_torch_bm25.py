@@ -1,7 +1,7 @@
 """The port's BM25 path against the JAX package's, on one seeded corpus.
 
-Tolerances: the sparse index arrays are equal to
-``build_sparse_index(..., use_native=False)``; scatter, resident, dual and
+Tolerances: the sparse index arrays of both Python builders
+(``use_native=False``) are equal; scatter, resident, dual and
 overflow scoring give identical indices and scores within rtol 1e-6 (f32 sums
 in a different order). K5's JAX side runs with ``interpret=True``, as the JAX
 package's own tests run it.
@@ -44,7 +44,7 @@ def corpus():
 def _indexes(corpus, bm25_type=0):
     docs, dirs, _ = corpus
     return jax_build(docs, bm25_type=bm25_type, dirs=dirs, use_native=False), build_sparse_index(
-        docs, bm25_type=bm25_type, dirs=dirs
+        docs, bm25_type=bm25_type, dirs=dirs, use_native=False
     )
 
 
@@ -165,7 +165,7 @@ def test_dual_scorer_matches_reference(corpus):
     paths = [[f"p{i % 5}", f"p{i % 3}x"] for i in range(len(docs))]
     ref_c, got_c = _residents(corpus, True)
     ref_p = jres.ResidentSparseIndex(jax_build(paths, dirs=dirs, use_native=False), light_cap=4, max_query_terms=16)
-    got_p = tres.ResidentSparseIndex(build_sparse_index(paths, dirs=dirs), light_cap=4, max_query_terms=16, device="cpu")
+    got_p = tres.ResidentSparseIndex(build_sparse_index(paths, dirs=dirs, use_native=False), light_cap=4, max_query_terms=16, device="cpu")
     qs = [q + ["p1", "p2x"] for q in queries]
     dir_fs = [-1, 2, -2, -1, 0]
     (rv1, ri1), (rv2, ri2) = jres.DualResidentScorer(ref_c, ref_p).score_topk(qs, 10, 3, dir_fs)
@@ -181,18 +181,24 @@ def test_dual_scorer_matches_reference(corpus):
 
 
 def test_resident_auto_cap_and_limits(corpus):
-    _, idx = _indexes(corpus)
+    ref_idx, idx = _indexes(corpus)
     lens = np.diff(idx.stats.term_offsets)
+    # the reference's cost-model cap, not the smallest that fits the budget
     r = tres.ResidentSparseIndex(idx, heavy_hbm_budget=1 << 30, device="cpu")
-    assert r.light_cap == 8  # the smallest cap fits a generous budget
+    assert r.light_cap == jres.ResidentSparseIndex(ref_idx, heavy_hbm_budget=1 << 30).light_cap
     tight = int((lens > 32).sum()) * idx.num_docs * 4
-    assert tres.auto_light_cap(lens, idx.num_docs, 4, tight) == 32
-    assert tres.auto_light_cap(lens, idx.num_docs, 4, 0) == idx.num_docs
+    for budget in (tight, 0):
+        assert tres.auto_light_cap(lens, idx.num_docs, 4, budget, 64) == jres.auto_light_cap(
+            lens, idx.num_docs, 4, budget, 64)
+    assert tres.auto_light_cap(lens, idx.num_docs, 4, 0, 64) == idx.num_docs
     with pytest.raises(ValueError):
         tres.ResidentSparseIndex(idx, max_query_terms=2, device="cpu").query_terms(["t1", "t2", "t3"])
+    # compressed heavy storage and the K5 tail construct and score
     for kw in ({"heavy_dtype": "bfloat16"}, {"heavy_dtype": "int8"}, {"tail": "pallas"}):
-        with pytest.raises(NotImplementedError):
-            tres.ResidentSparseIndex(idx, device="cpu", **kw)
+        tv, _ = tres.ResidentSparseIndex(idx, device="cpu", **kw).score_topk(corpus[2][:1], 5)
+        assert np.isfinite(tv[0, 0])
+    with pytest.raises(ValueError):
+        tres.ResidentSparseIndex(idx, heavy_dtype="float16", device="cpu")
 
 
 @pytest.fixture

@@ -355,9 +355,20 @@ def test_fusion_without_the_dense_route_is_refused(tmp_path, offline_counter):
 
 def test_unported_options_raise(tmp_path, offline_counter):
     data_path = make_corpus(tmp_path / "corpus")
-    for kw in ({"split_type": 1}, {"hyde": True}, {"index_artifact_path": str(tmp_path / "a")}):
-        with pytest.raises(NotImplementedError):
-            EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}), device="cpu")
+    # split_type 1, HyDE, the corpus artifact and the compressor are ported:
+    # each builds and answers (tests/test_torch_options.py holds them to JAX)
+    for kw in ({"split_type": 1}, {"hyde": True, "hyde_merging": True}, {"index_artifact_path": str(tmp_path / "a")},
+               {"compress_method": "bm25_extract"}):
+        llm = RecordingLLM()
+        pipe = EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, **{"use_reranker": 0, **kw}), llm=llm,
+                               device="cpu")
+        out = asyncio.run(pipe.run(dict(QUERIES[0])))
+        assert out["contexts"] and out["answer"] == f"answer-{len(llm.prompts)}"
+    # sharded indexes are the one option still refused
+    for tpu in (dict(shard_index=True), dict(mesh_shape=[1])):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, use_reranker=0, tpu=tconfig.TPUConfig(**tpu)),
+                            device="cpu")
     # the decode pool is ported; like JAX's it needs static shapes and the
     # on-device decoder, and says so before loading a model
     for tpu in (dict(local_llm_max_new=0), dict(local_llm_max_new=4, local_llm_backend="hf")):
@@ -381,7 +392,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     sys.path.insert(0, {repo!r})
     import torch
     import chip_smoke  # noqa: F401  (importing the smoke script loads nothing of JAX)
-    from easyrag_tpu_torch.config import EasyRAGConfig
+    from easyrag_tpu_torch.config import EasyRAGConfig, TPUConfig
+    from easyrag_tpu_torch.corpus.hierarchical import HierarchicalSplitter
     from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
     from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
     from easyrag_tpu_torch.rerankers import LLMRerank
@@ -396,6 +408,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     from easyrag_tpu_torch.ops import chunkmax  # noqa: F401
     from easyrag_tpu_torch.models import decode_pool  # noqa: F401
     from easyrag_tpu_torch.serving import api, coalesce, webui  # noqa: F401
+    from easyrag_tpu_torch import automerge, compressors, native  # noqa: F401
+    from easyrag_tpu_torch.index import artifact  # noqa: F401
 
     DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
     root = {tmp!r}
@@ -435,6 +449,22 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
         device="cpu",
     )
     out = [asyncio.run(pipe.run(dict(q))) for q in QUERIES]
+
+    # the non-default options: hierarchical chunks with auto-merging, HyDE,
+    # the compressor, int8 heavy storage, the corpus artifact (saved, then
+    # booted from) and the native index builder
+    def options_pipeline():
+        split = [SentenceSplitter(n, 10, token_counter=approx_token_count, sentence_splitter=lambda t: [t])
+                 for n in (256, 64)]
+        return EasyRAGPipeline(
+            EasyRAGConfig(data_path=root, chunk_size=64, chunk_overlap=10, f_topk_2=8, f_topk_3=2, split_type=1,
+                          hyde=True, hyde_merging=True, compress_method="bm25_extract",
+                          index_artifact_path=root + "_artifact", tpu=TPUConfig(sparse_heavy_dtype="int8")),
+            llm=StubLLM(), reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1), sparse_tokenizer=CharCut(),
+            splitter=HierarchicalSplitter(splitters=split), device="cpu",
+        )
+    opt = [asyncio.run(options_pipeline().run(dict(q))) for q in QUERIES]
+    rebooted = [asyncio.run(options_pipeline().run(dict(q))) for q in QUERIES]
 
     # the generator: a tiny bf16 checkpoint (as real shards are) read back
     # as int4 with an int8 embedding table, fused, and one greedy generate
@@ -497,7 +527,9 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     print(json.dumps({{"contexts": [len(o["contexts"]) for o in out], "answers": [o["answer"] for o in out],
                       "fused": sorted(params["layers"][0]["attn"]) + sorted(params["layers"][0]["mlp"]),
                       "embed": sorted(params["embed"]), "tokens": toks.tolist(), "jax_modules": loaded,
-                      "rrf_nodes": [len(o["nodes"]) for o in fused], "embedded": emb.stats["batches"]}}))
+                      "rrf_nodes": [len(o["nodes"]) for o in fused], "embedded": emb.stats["batches"],
+                      "options": [o["contexts"] for o in opt], "rebooted": [o["contexts"] for o in rebooted],
+                      "native_builds": native.builds}}))
     """
 )
 
@@ -519,6 +551,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert result["answers"] == ["answer"] * len(QUERIES)
     assert all(0 < n <= 3 for n in result["contexts"])
     assert all(0 < n <= 6 for n in result["rrf_nodes"]) and result["embedded"] == 1 + len(QUERIES)
+    assert all(result["options"]) and result["rebooted"] == result["options"]
+    assert result["native_builds"] >= 2  # both routes of the options pipeline's first boot
 
 
 def _imported_modules(path):
