@@ -6,7 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each one raises on failure; nothing falls back to the CPU):
 
 0. environment: Python/torch/CUDA versions, the card's ``nvidia-smi`` name
-   and power limit, ``nvcc``, and which of yaml/jieba/transformers import;
+   and power limit, ``nvcc``, and which of yaml/jieba/transformers/bs4
+   import;
 1. build the six CUDA kernels from ``easyrag_tpu_torch/csrc`` (the sources
    and their shared header ``attention_sm90.cuh``), one ``nvcc`` per source,
    all started together; print each one's registers and spills;
@@ -147,7 +148,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    MiniCPM quantized to w8a8, phase 5's generator behind the decode pool)
    and served by ``serving.api.create_app`` (the rerank coalescer, the
    kernel build, the pool's boot warmup) on 127.0.0.1 at an ephemeral port:
-   ``GET /test``, ``GET /ui``, a CORS preflight, then 12 ``POST /v1/rag``
+   ``GET /test``, ``GET /ui``, a CORS preflight, then 8 ``POST /v1/rag``
    at concurrency 4 after one warm request (``tools/bench_serving.py``'s
    pattern); each response's contexts must equal ``run``'s for its query
    without the server and each answer the solo greedy answer at B=1, a
@@ -182,7 +183,27 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    K5's overflow path), each split by its timing events (HyDE, retrieval,
    the HyDE merge, rerank, generation), K1, K2, K3 and K6 launched on each;
    then a reboot from the artifact (no ingestion, no index build) whose
-   contexts and answers must equal the cold boot's.
+   contexts and answers must equal the cold boot's;
+12. sharded retrieval on one card (``easyrag_tpu_torch/parallel``): (a) phase
+   3's content index as ``ShardedResidentSparseIndex`` at D = 4 and D = 3 on
+   ``["cuda:0"] * D`` in f32, bf16 and int8, rows and CSR, each at the cap
+   and layout of the single-chip index it is held to: phase 9's stream
+   (the queries within the term budget) and phase 3's queries alone, top-192
+   equal to the single-chip index's bit for bit, K6 launched once a batch on
+   every shard (counted from 0 just before the stream), each shard's device
+   bytes and the stream's ms beside the single-chip index's (shards on one
+   card: not a scaling figure); (b) phase 7's seeded 20,000 x 3584 index as
+   ``ShardedDenseIndex`` at D = 4 in bf16 and int8, a 64-query top-288
+   stream against ``DenseIndex``'s (int8 bit for bit; bf16 ids equal where
+   the scores are distinct, scores within rtol 1e-5); (c)
+   ``EasyRAGPipeline`` on ``configs/easyrag.yaml`` with ``tpu.shard_index``
+   and an injected 4-shard mesh on the card, phase 3's reranker: phase 3's
+   three queries, contexts equal to phase 3's pipeline's, K6 on the shards,
+   K5 on the 80-term query (launches counted from 0 just before each query);
+   (d) two gloo processes on the card's host (``parallel/multihost.py``)
+   each parse their share of 512 of phase 3's files, save it, all-gather
+   a per-chunk vector and the result is assembled: nodes, vectors and BM25
+   index equal to a one-process build.
 
 Every kernel's entry in the JSON line carries its bound at the timed shape
 (the larger of its operations over the card's peak for their type and its
@@ -313,7 +334,9 @@ POOL_TIERS, POOL_CHUNK = "2048:2,7680:2", 32
 # 64 keeps the smoke inside its time limit)
 POOL_MAX_NEW = 64
 POOL_PROMPTS = (1800, 1200, 500, 7000, 6000, 1900)
-SERVE_REQUESTS, SERVE_CONCURRENCY = 12, 4
+# 8 served requests (tools/bench_serving.py's default is 12): two waves at
+# concurrency 4 keep the smoke inside its time limit with phase 12
+SERVE_REQUESTS, SERVE_CONCURRENCY = 8, 4
 SERVE_TIMEOUT_S = 420  # one served run, (b) or (c), fails past this instead of hanging
 # phase 11: HyDE's and the answer's new tokens (phase 5 runs the flagship's 128)
 OPT_GEN_NEW = 32
@@ -468,7 +491,7 @@ def phase_env(torch):
     from easyrag_tpu_torch import _build
 
     say(f"nvcc: {run_text([_build.find_nvcc(), '--version']).splitlines()[-1]}")
-    for mod in ("yaml", "jieba", "transformers"):
+    for mod in ("yaml", "jieba", "transformers", "bs4"):
         proc = subprocess.run([sys.executable, "-c", f"import {mod}"], capture_output=True, timeout=300)
         say(f"import {mod}: {'ok' if proc.returncode == 0 else 'missing'}")
     return smi
@@ -1064,7 +1087,7 @@ def phase_pipeline(torch, np, f64, k5, k6, tmp):
     ids, mask = scorer.build_inputs(batch)
     idx = pipeline.sparse_retriever.index
     long_ids, _ = idx.gather_postings(idx.query_term_ids(long_tokens), pad_to=cfg.tpu.max_query_postings, bucket=True)
-    return pipeline, reranker, queries, launches, mask, len(long_ids)
+    return pipeline, reranker, queries, launches, mask, len(long_ids), [r[2]["contexts"] for r in results]
 
 
 def phase_main_shapes(torch, np, f64, k5, mask, P):
@@ -3206,6 +3229,262 @@ def phase_options(torch, np, tmp, sparse, queries, reranker, generator, smi):
     return tail_launches, tail_times
 
 
+def crc_embedding(np, nodes):
+    """An 8-wide vector per node from the CRC-32 of its text: the same in every
+    process (the all-gather's payload where no embedder runs)."""
+    import zlib
+
+    return np.stack([np.full(8, (zlib.crc32(n.text.encode("utf-8")) % 1000) / 1000.0, np.float32) for n in nodes]) \
+        if nodes else np.zeros((0, 8), np.float32)
+
+
+def parse_files(docs):
+    """Phase 3's chunking of ``docs`` (``configs/easyrag.yaml``'s chunk size,
+    one chunk per one-part file)."""
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+
+    cfg = load_config(os.path.join(REPO, "configs", "easyrag.yaml"))
+    return SentenceSplitter(cfg.chunk_size, cfg.chunk_overlap, token_counter=approx_token_count,
+                            sentence_splitter=lambda t: [t]).parse_documents(docs)
+
+
+def multihost_worker(pid: int, nproc: int, port: int, corpus: str, out_dir: str) -> None:
+    """One host of phase 12 (d): join the gloo group on a local port, parse
+    and save its round-robin share of ``corpus``, all-gather the shards'
+    vectors, save what came back."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from easyrag_tpu_torch.corpus.reader import read_data
+    from easyrag_tpu_torch.parallel.multihost import allgather_shard_embeddings, build_shard, init_distributed
+
+    init_distributed(f"127.0.0.1:{port}", num_processes=nproc, process_id=pid)
+    nodes = build_shard(read_data(corpus), pid, nproc, parse_files, out_dir, embed_fn=lambda n: crc_embedding(np, n))
+    np.save(os.path.join(out_dir, f"gathered_{pid}.npy"), allgather_shard_embeddings(crc_embedding(np, nodes)))
+    dist.destroy_process_group()
+
+
+def phase_sharded(torch, np, tmp, sparse, queries, reranker, phase3_contexts, mods, smi):
+    """Phase 12: sharded retrieval on one card. (a) phase 3's content index as
+    ``ShardedResidentSparseIndex`` at D = 4 and 3 on ``["cuda:0"] * D`` in f32,
+    bf16 and int8, rows and CSR, at the single-chip index's cap, phase 9's
+    stream and phase 3's queries against the single-chip index bit for bit;
+    (b) phase 7's 20,000 x 3584 index as ``ShardedDenseIndex`` at D = 4 in bf16
+    and int8, a 64-query top-288 stream against ``DenseIndex``; (c)
+    ``EasyRAGPipeline`` on ``configs/easyrag.yaml`` with ``tpu.shard_index`` and
+    an injected 4-shard mesh, phase 3's queries against phase 3's contexts; (d)
+    two gloo processes building shards of 512 files, all-gathered and
+    assembled, against a one-process build."""
+    say("== phase 12: sharded retrieval on one card (resident BM25, dense, the pipeline, the multi-host build)")
+    import gc
+    import shutil
+    import socket
+
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.reader import read_data
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.index.dense import DenseIndex
+    from easyrag_tpu_torch.index.sparse import build_sparse_index
+    from easyrag_tpu_torch.ops.bm25_resident import ResidentSparseIndex
+    from easyrag_tpu_torch.parallel.mesh import make_mesh
+    from easyrag_tpu_torch.parallel.multihost import assemble_shards, shard_documents
+    from easyrag_tpu_torch.parallel.sharded import ShardedDenseIndex, ShardedResidentSparseIndex
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+
+    dev = torch.device("cuda")
+    k5, k6 = mods["K5"], mods["K6"]
+    label = "shards on one card, not a scaling figure"
+
+    def bits_equal(a, b):
+        (av, ai), (bv, bi) = a, b
+        return np.array_equal(ai, bi) and np.array_equal(np.asarray(av).view(np.uint32), np.asarray(bv).view(np.uint32))
+
+    def timed(fn):
+        fn()  # warm-up, not counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # (a) the resident index, sharded at the single-chip index's cap and layout
+    index, tokens, dir_names = sparse["index"], sparse["tokens"], sparse["dirs"]
+    cfg = load_config(os.path.join(REPO, "configs", "easyrag.yaml"), overrides={"data_path": tmp})
+    T, k = cfg.tpu.max_query_terms, cfg.f_topk_2
+    keep = [i for i, t in enumerate(tokens) if len(set(t)) <= T]
+    dir_f = np.asarray([index.dir_vocab.get(d, -2) if d else -1 for d in dir_names], np.int32)[keep]
+    n_batches = -(-len(keep) // 64)
+    tok = SparseTokenizer()
+    named = [(name, toks, q.get("document")) for (name, q, _), toks in zip(queries, sparse["queries"], strict=True)]
+    for dtype in ("float32", "bfloat16", "int8"):
+        for rows in (True, False):
+            single = ResidentSparseIndex(index, max_query_terms=T, heavy_dtype=dtype, light_rows=rows,
+                                         heavy_hbm_budget=cfg.tpu.sparse_heavy_hbm_budget,
+                                         light_rows_hbm_budget=cfg.tpu.sparse_light_rows_hbm_budget, device=dev)
+            ids, cnts = single.query_terms_batch([tokens[i] for i in keep])
+            want, ms1 = timed(lambda: single.stream_from_arrays(ids, cnts, dir_f, k))
+            single_mib = sum(t.numel() * t.element_size() for t in (
+                single.heavy, single.heavy_scales, single.post_docs, single.post_vals, single.t_starts,
+                single.t_light_lens, single.t_heavy_row, single.dir_col) if t is not None) / 2**20
+            for d in (4, 3):
+                mesh = make_mesh([d], devices=["cuda:0"] * d)
+                t0 = time.perf_counter()
+                sh = ShardedResidentSparseIndex(mesh, index, light_cap=single.light_cap, max_query_terms=T,
+                                                heavy_dtype=dtype, light_rows=rows)
+                torch.cuda.synchronize()
+                t_build = time.perf_counter() - t0
+                check(len(sh.shards) == d and sh.light_layout == single.light_layout and sh.H == single.heavy.shape[0],
+                      f"(a) {dtype}: the sharded index does not hold the single-chip split")
+                sh.stream_from_arrays(ids[:64], cnts[:64], dir_f[:64], k)  # warm-up, not counted
+                torch.cuda.synchronize()
+                k6.launches = k5.launches = 0
+                t0 = time.perf_counter()
+                got = sh.stream_from_arrays(ids, cnts, dir_f, k)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                l6, l5 = k6.launches, k5.launches
+                check(bits_equal(got, want), f"(a) {dtype}/{single.light_layout}, D={d}: the sharded stream's "
+                      "top-k differs from the single-chip index's")
+                check(l6 == d * n_batches and l5 == 0,
+                      f"(a) D={d}: K6 launched {l6} times (want {d} shards x {n_batches} batches), K5 {l5}")
+                alone = 0
+                for name, toks, dname in named:
+                    if len(set(toks)) > T:
+                        continue  # past the term budget: the gather path, (c) runs it
+                    a = sh.score_topk([toks], k, dir_values=[dname])
+                    check(bits_equal(a, single.score_topk([toks], k, dir_values=[dname])),
+                          f"(a) {dtype}, D={d}: query {name!r} alone differs from the single-chip index")
+                    alone += 1
+                per = [b / 2**20 for b in sh.device_bytes()]
+                say(f"(a) {dtype} heavy, {sh.light_layout} (cap {sh.light_cap}, H {sh.H}), D={d} ({label}): "
+                    f"shards of {[s.num_docs for s in sh.shards]} docs, {', '.join(f'{m:.1f}' for m in per)} MiB "
+                    f"on the card each (single-chip {single_mib:.1f} MiB); built in {t_build:.1f} s; stream of "
+                    f"{len(keep)} queries: {ms:.1f} ms sharded vs {ms1:.1f} ms single-chip; top-{k} equal bit for "
+                    f"bit, and phase 3's {alone} queries within the budget alone; K6 launches {l6} "
+                    f"({l6 // d} per shard, one a batch), K5 {l5} [{smi}]")
+                del sh
+            del single
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # (b) the dense index at phase 7's size, 4 shards, bf16 and int8
+    rng = np.random.default_rng(SEED + 9)
+    dim, kd = GTE_QWEN2_7B["hidden_size"], 288
+    emb = rng.standard_normal((INDEX_ROWS, dim), dtype=np.float32)
+    dirs = [("director", "emsplus", "rcp", "umac")[i % 4] for i in range(INDEX_ROWS)]
+    near = rng.choice(INDEX_ROWS, size=32, replace=False)
+    q64 = np.concatenate([emb[near] + 0.5 * rng.standard_normal((32, dim), dtype=np.float32),
+                          rng.standard_normal((32, dim), dtype=np.float32)])
+    dvals = [("rcp" if i % 8 == 5 else None) for i in range(64)]
+    mesh4 = make_mesh([4], devices=["cuda:0"] * 4)
+    for dtype in ("bfloat16", "int8"):
+        single = DenseIndex.build(emb, dirs=dirs, dtype=dtype, device=dev)
+        sh = ShardedDenseIndex.build(mesh4, emb, dirs=dirs, dtype=dtype)
+        want, ms1 = timed(lambda: single.query_stream(q64, kd, dir_values=dvals))
+        k6.launches = 0
+        got, ms = timed(lambda: sh.query_stream(q64, kd, dir_values=dvals))
+        l6 = k6.launches
+        exact = bits_equal(got, want)
+        (gv, gi), (wv, wi) = got, want
+        if dtype == "int8":
+            check(exact, "(b) int8: the sharded top-288 differs from DenseIndex's (exact integer products)")
+        else:
+            check(bool(np.allclose(gv, wv, rtol=1e-5, atol=0)), "(b) bf16: sharded scores differ beyond rtol 1e-5")
+            moved = gi != wi
+            close = np.abs(np.diff(wv, axis=1)) <= 1e-5 * np.abs(wv[:, 1:])
+            tied = np.zeros_like(moved)
+            tied[:, 1:] |= close
+            tied[:, :-1] |= close
+            check(not (moved & ~tied).any(), "(b) bf16: a sharded index differs where the scores are distinct")
+        check(l6 == 2 * 4, f"(b) {dtype}: K6 launched {l6} times, want 4 shards x 1 batch (x2 with the warm-up)")
+        per = [b / 2**20 for b in sh.device_bytes()]
+        say(f"(b) {dtype} dense {INDEX_ROWS} x {dim}, D=4 ({label}): shards of {[s.width for s in sh.shards]} rows, "
+            f"{', '.join(f'{m:.1f}' for m in per)} MiB on the card each; 64-query top-{kd} stream (every 8th "
+            f"filtered): {ms:.2f} ms sharded vs {ms1:.2f} ms single-chip; "
+            f"{'equal bit for bit' if exact else 'ids equal where scores are distinct, scores within rtol 1e-5'}; "
+            f"K6 launches {l6 // 2} a stream (one per shard) [{smi}]")
+        del single, sh
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the pipeline with tpu.shard_index over an injected 4-shard mesh
+    cfg = load_config(os.path.join(REPO, "configs", "easyrag.yaml"), overrides={"data_path": tmp, "tpu.shard_index": True})
+    t0 = time.perf_counter()
+    pipeline = EasyRAGPipeline(
+        cfg, llm=StubLLM(), reranker=reranker, sparse_tokenizer=SparseTokenizer(),
+        splitter=SentenceSplitter(cfg.chunk_size, cfg.chunk_overlap, token_counter=approx_token_count,
+                                  sentence_splitter=lambda t: [t]),
+        device=dev, mesh=mesh4,
+    )
+    torch.cuda.synchronize()
+    res = pipeline.sparse_retriever._resident
+    check(isinstance(res, ShardedResidentSparseIndex) and pipeline._dual_scorer is None,
+          "(c) tpu.shard_index did not shard the resident index")
+    say(f"(c) pipeline boot with tpu.shard_index over 4 shards on one card: {time.perf_counter() - t0:.1f} s; content "
+        f"index cap {res.light_cap}, layout {res.light_layout}, H {res.H}, shards of "
+        f"{[s.num_docs for s in res.shards]} docs")
+    for (name, q, _), want_ctx in zip(queries, phase3_contexts, strict=True):
+        for mod in mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out = asyncio.run(pipeline.run(dict(q)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {key: mod.launches for key, mod in mods.items()}
+        n_terms = len(set(pipeline.sparse_retriever._tokenize_query(q["query"])))
+        check(out["contexts"] == want_ctx, f"(c) query {name!r}: contexts differ from phase 3's pipeline")
+        check(got["K1"] > 0 and got["K6"] >= 4, f"(c) query {name!r}: K1 or the per-shard K6 did not run: {got}")
+        check((got["K5"] > 0) == (n_terms > T), f"(c) query {name!r} ({n_terms} terms): K5 launches {got['K5']}")
+        say(f"(c) query {name!r} ({n_terms} distinct terms): {ms:.1f} ms; contexts equal to phase 3's pipeline; "
+            f"launches {got}")
+    del pipeline, res
+    gc.collect()
+
+    # (d) two gloo processes build shards of 512 files, all-gather, assemble
+    work = tempfile.mkdtemp(prefix="easyrag_multihost_")
+    corpus, out = os.path.join(work, "corpus"), os.path.join(work, "shards")
+    sub_corpus(tmp, corpus, 512)
+    os.makedirs(out)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""}
+    code = "import sys, chip_smoke; chip_smoke.multihost_worker(int(sys.argv[1]), 2, int(sys.argv[2]), sys.argv[3], sys.argv[4])"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(pid), str(port), corpus, out], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+    try:
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    t_mh = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"(d) a gloo worker failed: {log[-1500:]}")
+    nodes, assembled = assemble_shards(out)
+    docs = read_data(corpus)
+    direct = [n for pid in range(2) for n in parse_files(shard_documents(docs, pid, 2))]
+    gathered = [np.load(os.path.join(out, f"gathered_{pid}.npy")) for pid in range(2)]
+    check([n.text for n in nodes] == [n.text for n in direct] and [n.metadata for n in nodes] == [n.metadata for n in direct],
+          "(d) the assembled nodes differ from the one-process build")
+    want_emb = crc_embedding(np, direct)
+    check(all(np.array_equal(g, want_emb) for g in gathered) and np.array_equal(assembled, want_emb),
+          "(d) the all-gathered vectors differ from the one-process build's")
+    toks = [tok.cut(n.text) for n in nodes]
+    a, b = build_sparse_index(toks), build_sparse_index([tok.cut(n.text) for n in direct])
+    check(np.array_equal(a.stats.post_docs, b.stats.post_docs) and np.array_equal(a.post_vals, b.post_vals),
+          "(d) the index over the assembled nodes differs from the one-process build's")
+    sizes = [len(np.load(os.path.join(out, d, "emb.npy"))) for d in sorted(os.listdir(out)) if d.startswith("shard_")]
+    say(f"(d) two gloo processes on the card's host: shards of {sizes} chunks of {len(docs)} files, all-gathered and "
+        f"assembled in {t_mh:.1f} s (process start included); nodes, vectors and the BM25 index equal to the "
+        f"one-process build")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3251,7 +3530,7 @@ def main() -> int:
         new_errs, new_times, extra = phase_new_kernels(torch, np, k2, k3)
         lap("phases 0-2")
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
-            pipeline, minicpm, queries, launches, mask, P = phase_pipeline(torch, np, f64, k5, k6, tmp)
+            pipeline, minicpm, queries, launches, mask, P, contexts3 = phase_pipeline(torch, np, f64, k5, k6, tmp)
             timings = phase_main_shapes(torch, np, f64, k5, mask, P)
             lap("phases 3-4")
             gen_launches, _, generator = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
@@ -3267,6 +3546,7 @@ def main() -> int:
             sr = pipeline.sparse_retriever
             sparse = {"index": sr.index, "tokens": [sr._tokenize_query(q["query"]) for q in stream],
                       "dirs": [q.get("document") for q in stream],
+                      "queries": [sr._tokenize_query(q["query"]) for _, q, _ in queries],
                       "corpus": [sr._tokenize_query(get_node_content(n, sr.embed_type)) for n in pipeline.nodes]}
             del pipeline, sr
             lap("phase 9")
@@ -3274,6 +3554,8 @@ def main() -> int:
             lap("phase 10")
             tail_launches, tail_times = phase_options(torch, np, tmp, sparse, queries, minicpm, generator, smi)
             lap("phase 11")
+            phase_sharded(torch, np, tmp, sparse, queries, minicpm, contexts3, mods, smi)
+            lap("phase 12")
         loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
         check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:

@@ -22,8 +22,10 @@ import yaml
 class TPUConfig:
     """Execution knobs with no reference equivalent. The section keeps the
     JAX package's name and fields, so one YAML file configures both
-    packages; the port raises ``NotImplementedError`` on the options it has
-    not ported (``pipeline._check_supported``)."""
+    packages. ``mesh_shape`` / ``shard_index`` shard the retrieval indexes
+    over the mesh's ``data`` axis (``parallel/``); a ``model`` axis wider
+    than 1 raises ``NotImplementedError`` where a model is loaded (tensor
+    parallelism is not ported yet)."""
 
     mesh_shape: Optional[List[int]] = None  # None -> all devices on one axis
     mesh_axis_names: List[str] = field(default_factory=lambda: ["data"])

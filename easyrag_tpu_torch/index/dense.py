@@ -67,6 +67,25 @@ def _int8_scores(q8: torch.Tensor, m8: torch.Tensor, n: int) -> torch.Tensor:
     return torch._int_mm(qp, m8.t())[:b, :n]
 
 
+def dense_scores(
+    query: torch.Tensor,  # [B, D] f32 (normalized)
+    matrix: torch.Tensor,  # [N, D] bf16/f32, or int8 with scales (maybe pad_int8's form)
+    scales: Optional[torch.Tensor] = None,  # [N] f32, int8 rows only
+) -> torch.Tensor:
+    """Cosine scores ``[B, N]`` f32, before the filter and the top-k. An int8
+    matrix has ``N = len(scales)`` rows; any rows and columns past them are
+    :func:`pad_int8`'s zeros."""
+    if matrix.dtype == torch.int8:
+        q = query.float()
+        # times the f32 reciprocal: XLA compiles JAX's `/ 127.0` so
+        q_scale = q.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0)
+        q8 = torch.clamp(torch.round(q / torch.clamp(q_scale, min=1e-12)), -127, 127).to(torch.int8)
+        return _int8_scores(q8, matrix, scales.shape[0]).float() * q_scale * scales[None, :]
+    if matrix.dtype == torch.bfloat16 and matrix.is_cuda:
+        return torch.mm(query.to(torch.bfloat16), matrix.t(), out_dtype=torch.float32)
+    return query.to(matrix.dtype).float() @ matrix.float().t()
+
+
 @torch.inference_mode()
 def dense_score_topk(
     query: torch.Tensor,  # [B, D] f32 (normalized)
@@ -77,21 +96,9 @@ def dense_score_topk(
     scales: Optional[torch.Tensor] = None,  # [N] f32, int8 rows only
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cosine scores + filtered top-k: ``(scores [B, k] f32, idx [B, k]
-    int64)``, ``k`` capped at ``N``. An int8 matrix has ``N = len(scales)``
-    rows; any rows and columns past them are :func:`pad_int8`'s zeros."""
-    if matrix.dtype == torch.int8:
-        n = scales.shape[0]
-        q = query.float()
-        # times the f32 reciprocal: XLA compiles JAX's `/ 127.0` so
-        q_scale = q.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0)
-        q8 = torch.clamp(torch.round(q / torch.clamp(q_scale, min=1e-12)), -127, 127).to(torch.int8)
-        scores = _int8_scores(q8, matrix, n).float() * q_scale * scales[None, :]
-    elif matrix.dtype == torch.bfloat16 and matrix.is_cuda:
-        n = matrix.shape[0]
-        scores = torch.mm(query.to(torch.bfloat16), matrix.t(), out_dtype=torch.float32)
-    else:
-        n = matrix.shape[0]
-        scores = query.to(matrix.dtype).float() @ matrix.float().t()
+    int64)``, ``k`` capped at ``N``."""
+    scores = dense_scores(query, matrix, scales)
+    n = scores.shape[1]
     if dir_col is not None and dir_filter is not None:
         keep = (dir_filter[:, None] == -1) | (dir_col[None, :] == dir_filter[:, None])
         scores = torch.where(keep, scores, NEG_INF)

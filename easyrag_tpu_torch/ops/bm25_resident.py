@@ -279,17 +279,17 @@ class ResidentSparseIndex:
         pos = torch.where(valid, self.t_starts[lt_ids][:, :, None] + win, self.P)
         return self.post_docs[pos], self.post_vals[pos] * lt_counts[:, :, None]
 
-    def _score_topk(
+    def score_rows(
         self,
         term_ids: torch.Tensor,  # [B, T] int64
         counts: torch.Tensor,  # [B, T] f32
-        k: int,
-        dir_filter: Optional[torch.Tensor] = None,  # [B] int32
         light_t: Optional[int] = None,
         heavy_form: str = "auto",
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Scores + filter + top-k for one batch of prepped queries; a row's
-        scores have the same bits at any batch size."""
+    ) -> torch.Tensor:
+        """The f32 scores ``[B, N]`` of one batch of prepped queries, before
+        the filter: the heavy part, then the light tail. A row's scores have
+        the same bits at any batch size. ``parallel/sharded.py`` runs this on
+        each shard's arrays (its ``N`` the shard's width)."""
         if self.device.type == "cuda":
             check_no_tf32()
         B, T = term_ids.shape
@@ -310,7 +310,19 @@ class ResidentSparseIndex:
                 d = docs[:, t, :]
                 flat.index_add_(0, torch.where(d < N, b_off + d, B * N).reshape(-1), vals[:, t, :].reshape(-1))
             scores = flat[: B * N].reshape(B, N)
-        return filter_topk(scores, k, self.dir_col, dir_filter)
+        return scores
+
+    def _score_topk(
+        self,
+        term_ids: torch.Tensor,  # [B, T] int64
+        counts: torch.Tensor,  # [B, T] f32
+        k: int,
+        dir_filter: Optional[torch.Tensor] = None,  # [B] int32
+        light_t: Optional[int] = None,
+        heavy_form: str = "auto",
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Scores + filter + top-k for one batch of prepped queries."""
+        return filter_topk(self.score_rows(term_ids, counts, light_t, heavy_form), k, self.dir_col, dir_filter)
 
     def _upload(self, ids: np.ndarray, cnts: np.ndarray):
         return torch.from_numpy(ids).to(self.device), torch.from_numpy(cnts).to(self.device)

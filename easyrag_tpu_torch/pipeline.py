@@ -14,7 +14,7 @@ for one answer (type 1), or each route answers and the longer answer (2) or
 both (3) are returned. ``retrieval_type`` 1 or 3 builds the dense index at
 boot (or reloads its artifact from ``cache_path/collection_name``); as in
 JAX, ``rerank_fusion_type`` 0 never queries it (ROADMAP Queue 3). The
-options of ``easyrag_tpu/pipeline.py`` are all here but sharding:
+options of ``easyrag_tpu/pipeline.py`` are all here but tensor parallelism:
 ``split_type`` 1 (hierarchical chunks, BM25 over the leaves, auto-merging),
 HyDE (``hyde``: the LLM's hypothetical document appended to the query;
 ``hyde_merging``: a second prompt before the rerank), the corpus artifact
@@ -35,8 +35,14 @@ batches, the sparse dual route or the fusion route's dense and sparse lists)
 and ``run_answers_batch`` (that retrieval, each query reranked, every answer
 from ``TorchCausalLM.generate_batch``), each row equal to ``run``'s; under
 HyDE, or over the auto-merging retriever, they run ``run`` query by query, as
-JAX's gates do. Sharded indexes raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+JAX's gates do. ``tpu.mesh_shape`` builds a device mesh (``parallel/mesh.py``:
+by default distinct cards, as many as the shape needs) and ``tpu.shard_index``
+shards both BM25 routes' resident indexes and the dense index over its
+``data`` axis (``parallel/sharded.py``); a mesh may instead be injected
+(``mesh=``), e.g. four shards on one card. Sharded routes are scored route by
+route, as in JAX: the fused dual-route scorer is single-chip. A ``model`` axis
+wider than 1 (tensor parallelism) raises ``NotImplementedError`` where a model
+is loaded.
 """
 
 from __future__ import annotations
@@ -66,8 +72,8 @@ from .generation import (
     generation,
 )
 from .index.artifact import CorpusArtifact
-from .index.dense import DenseIndex
-from .ops.bm25_resident import DualResidentScorer
+from .index.dense import DenseIndex, load_dense_arrays, prepare_dense_arrays, save_dense_artifact
+from .ops.bm25_resident import DualResidentScorer, ResidentSparseIndex
 from .retrievers import BM25Retriever, DenseRetriever, HybridRetriever
 from .schema import NodeWithScore, QueryBundle, build_nodeid2idx
 from .templates import (
@@ -81,11 +87,9 @@ from .utils.events import emit, trace
 
 
 def _check_supported(cfg: EasyRAGConfig) -> None:
-    """Say which ROADMAP item covers an option the port does not have yet."""
+    """Refuse an option combination the pipeline cannot run."""
     if cfg.rerank_fusion_type != 0 and cfg.retrieval_type == 2:
         raise ValueError(f"rerank_fusion_type={cfg.rerank_fusion_type} fuses the dense route: set retrieval_type 1 or 3")
-    if cfg.tpu.shard_index or cfg.tpu.mesh_shape:
-        raise NotImplementedError("sharded indexes are ROADMAP Queue 1, item 13")
 
 
 def _corpus_fingerprint(data_path: str) -> str:
@@ -118,6 +122,7 @@ class EasyRAGPipeline:
         sparse_tokenizer=None,
         splitter=None,
         device: torch.device | str = "cuda",
+        mesh=None,
     ) -> None:
         """``sparse_tokenizer`` tokenizes for BM25 (default: jieba, as the
         reference); ``splitter`` chunks the documents (default: the
@@ -130,7 +135,10 @@ class EasyRAGPipeline:
         ``retrieval_type`` 1 or 3; without it, ``embedding_name`` is loaded
         through the registry, as ``reranker_name`` is without ``reranker``
         (``use_reranker`` 1 or 2). ``device`` is the card unless the caller
-        asks for the CPU; without a card it raises."""
+        asks for the CPU; without a card it raises. ``mesh``
+        (``parallel.mesh.Mesh``) stands in for the one ``tpu.mesh_shape``
+        would build; ``tpu.shard_index`` shards the indexes over its ``data``
+        axis."""
         if isinstance(config, dict):
             config = EasyRAGConfig.from_dict(config)
         _check_supported(config)
@@ -213,13 +221,22 @@ class EasyRAGPipeline:
 
         self._ctx_classes = None  # see _content_classes
 
+        # the device mesh (easyrag_tpu/pipeline.py:147-152); the indexes
+        # shard over it under tpu.shard_index when its data axis is wider than 1
+        self.mesh = mesh
+        if mesh is None and cfg.tpu.mesh_shape:
+            from .parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(cfg.tpu.mesh_shape, cfg.tpu.mesh_axis_names)
+        shard_mesh = self.mesh if cfg.tpu.shard_index else None
+
         self.embed_model = embed_model
         if cfg.retrieval_type != 2 and embed_model is None:
             from .models.registry import load_embedder
 
             self.embed_model = load_embedder(
                 cfg.embedding_name, cache_folder=cfg.hfmodel_cache_folder, embed_type=cfg.f_embed_type_1,
-                quant=cfg.tpu.embedder_quant, device=self.device,
+                mesh=self.mesh, quant=cfg.tpu.embedder_quant, device=self.device,
             )
         self.dense_retriever = self._build_dense(self.nodes, cfg) if cfg.retrieval_type != 2 else None
 
@@ -235,6 +252,7 @@ class EasyRAGPipeline:
             heavy_hbm_budget=cfg.tpu.sparse_heavy_hbm_budget,
             light_rows_hbm_budget=cfg.tpu.sparse_light_rows_hbm_budget,
             device=self.device,
+            mesh=shard_mesh,
         )
         self.sparse_retriever = BM25Retriever(
             similarity_top_k=cfg.f_topk_2, embed_type=cfg.f_embed_type_2, index=sparse_content, **route
@@ -245,7 +263,10 @@ class EasyRAGPipeline:
             self.path_retriever = BM25Retriever(
                 similarity_top_k=cfg.f_topk_3, embed_type=5, index=sparse_path, **route  # know_path
             )
-            self._dual_scorer = DualResidentScorer(self.sparse_retriever._resident, self.path_retriever._resident)
+            # sharded residents are scored route by route (JAX's rule): the
+            # fused dual scorer is single-chip
+            if isinstance(self.sparse_retriever._resident, ResidentSparseIndex):
+                self._dual_scorer = DualResidentScorer(self.sparse_retriever._resident, self.path_retriever._resident)
         if artifact is not None and not loaded:
             artifact.save(self.nodes, fingerprint, sparse_content=self.sparse_retriever.index,
                           sparse_path=self.path_retriever.index if self.path_retriever else None,
@@ -289,18 +310,34 @@ class EasyRAGPipeline:
         """The cosine index of the nodes' ``f_embed_type_1`` views: reloaded
         from the artifact at ``cache_path/collection_name`` unless
         ``reindex`` is set or its row count differs from the node list,
-        otherwise embedded, built and saved there (``pipeline.py:359-426``)."""
+        otherwise embedded, built and saved there (``pipeline.py:359-426``).
+        Under ``tpu.shard_index`` over a mesh whose ``data`` axis is wider
+        than 1 it is a ``ShardedDenseIndex``: the host arrays are read or
+        prepared once, then sharded (and saved in the single-chip format), so
+        the whole matrix never lands on one device."""
         artifact = os.path.join(cfg.cache_path, cfg.collection_name)
+        shard = cfg.tpu.shard_index and self.mesh is not None and self.mesh.shape.get("data", 1) > 1
+        if shard:
+            from .parallel.sharded import ShardedDenseIndex
         if not cfg.reindex and os.path.exists(os.path.join(artifact, "dense_arrays.npz")):
-            index = DenseIndex.load(artifact, device=self.device)
-            if index.num_docs == len(nodes):
+            if shard:
+                arrays = load_dense_arrays(artifact)
+                index = ShardedDenseIndex.from_arrays(self.mesh, *arrays) if len(arrays[0]) == len(nodes) else None
+            else:
+                index = DenseIndex.load(artifact, device=self.device)
+            if index is not None and index.num_docs == len(nodes):
                 emit("dense_index", {"loaded": index.num_docs})
                 return DenseRetriever(index, nodes, self.embed_model, similarity_top_k=cfg.f_topk_1)
         texts = [get_node_content(n, cfg.f_embed_type_1) for n in nodes]
         embeddings = np.asarray(self.embed_model.get_text_embeddings(texts))
         dirs = [n.metadata.get("dir", "") for n in nodes]
-        index = DenseIndex.build(embeddings, dirs=dirs, dtype=cfg.tpu.index_dtype, device=self.device)
-        index.save(artifact)
+        if shard:
+            arrays = prepare_dense_arrays(embeddings, dirs, cfg.tpu.index_dtype)
+            index = ShardedDenseIndex.from_arrays(self.mesh, *arrays, cfg.tpu.index_dtype)
+            save_dense_artifact(artifact, *arrays, cfg.tpu.index_dtype)
+        else:
+            index = DenseIndex.build(embeddings, dirs=dirs, dtype=cfg.tpu.index_dtype, device=self.device)
+            index.save(artifact)
         emit("dense_index", {"built": index.num_docs})
         return DenseRetriever(index, nodes, self.embed_model, similarity_top_k=cfg.f_topk_1)
 
@@ -407,7 +444,8 @@ class EasyRAGPipeline:
                 content_lists, path_lists = self._dual_retrieve_stream(bundles, filter_dicts)
             else:
                 content_lists = self.sparse_retriever.retrieve_batch(bundles, filter_dicts)
-                path_lists = [[] for _ in queries]
+                path_lists = (self.path_retriever.retrieve_batch(bundles) if self.path_retriever is not None
+                              else [[] for _ in queries])
         return [self._fuse_corpus_lists([c, p]) for c, p in zip(content_lists, path_lists)]
 
     async def run_answers_batch(self, queries: List[Dict[str, Any]]) -> List[Dict[str, Any]]:

@@ -4,10 +4,14 @@
 device-resident index; a query with more distinct terms than the resident
 index takes (``max_query_terms``) overflows to the gather path: the host
 gathers its postings and ``ops.bm25.bm25_score_topk`` scatters them (K5 on
-CUDA). :class:`DenseRetriever` embeds the query and queries the cosine
-index (``index/dense.py``). :class:`HybridRetriever` carries the reference's
-content fusion (``retrievers.py:239-253``), its reciprocal rank fusion
-(:256-274) and the route dispatch per ``retrieval_type`` (:276-291).
+CUDA). With a ``mesh`` whose ``data`` axis is wider than 1 the resident
+index is ``parallel/sharded.py``'s ``ShardedResidentSparseIndex`` (doc ranges
+over the mesh); the overflow stays the single-device gather path, as in JAX.
+:class:`DenseRetriever` embeds the query and queries the cosine index
+(``index/dense.py``, or a ``ShardedDenseIndex``). :class:`HybridRetriever`
+carries the reference's content fusion (``retrievers.py:239-253``), its
+reciprocal rank fusion (:256-274) and the route dispatch per
+``retrieval_type`` (:276-291).
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ class BM25Retriever:
     index is ``index`` (a prebuilt ``SparseIndex``, as the corpus artifact
     loads it) or is built from the nodes, through the native builder when it
     builds (``build_sparse_index(use_native=None)``, as JAX's retriever
-    builds); ``heavy_dtype`` is the resident index's heavy storage."""
+    builds); ``heavy_dtype`` is the resident index's heavy storage; ``mesh``
+    shards the resident index over its ``data`` axis when that is wider
+    than 1."""
 
     def __init__(
         self,
@@ -53,6 +59,7 @@ class BM25Retriever:
         light_rows_hbm_budget: int = 256 * 1024 * 1024,
         device: torch.device | str = "cuda",
         index: Optional[SparseIndex] = None,
+        mesh=None,
     ) -> None:
         self._nodes = nodes
         self._tokenizer = tokenizer
@@ -75,14 +82,18 @@ class BM25Retriever:
                 dirs=[node.metadata.get("dir", "") for node in nodes],
             )
         self.index = index
-        self._resident = ResidentSparseIndex(
-            self.index,
-            max_query_terms=max_query_terms,
-            heavy_dtype=heavy_dtype,
-            heavy_hbm_budget=heavy_hbm_budget,
-            light_rows_hbm_budget=light_rows_hbm_budget,
-            device=self.device,
-        )
+        budgets = dict(max_query_terms=max_query_terms, heavy_dtype=heavy_dtype, heavy_hbm_budget=heavy_hbm_budget,
+                       light_rows_hbm_budget=light_rows_hbm_budget)
+        if mesh is not None and mesh.shape.get("data", 1) > 1:
+            from .parallel.sharded import ShardedResidentSparseIndex
+
+            self._resident = ShardedResidentSparseIndex(mesh, self.index, **budgets)
+            # the overflow gather path's dir column, on this retriever's device
+            self._dir_col = (None if index.dir_ids is None
+                             else torch.from_numpy(index.dir_ids.astype(np.int32)).to(self.device))
+        else:
+            self._resident = ResidentSparseIndex(self.index, device=self.device, **budgets)
+            self._dir_col = self._resident.dir_col
 
     def _tokenize_query(self, query: str) -> List[str]:
         return tokenize_and_remove_stopwords(self._tokenizer, query, self.stopwords)
@@ -191,7 +202,7 @@ class BM25Retriever:
             torch.from_numpy(vals).to(dev),
             self.index.num_docs,
             self._similarity_top_k,
-            dir_col=self._resident.dir_col,
+            dir_col=self._dir_col,
             dir_filter=dir_t,
             use_pallas=self.use_pallas,
         )

@@ -364,11 +364,18 @@ def test_unported_options_raise(tmp_path, offline_counter):
                                device="cpu")
         out = asyncio.run(pipe.run(dict(QUERIES[0])))
         assert out["contexts"] and out["answer"] == f"answer-{len(llm.prompts)}"
-    # sharded indexes are the one option still refused
-    for tpu in (dict(shard_index=True), dict(mesh_shape=[1])):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    # sharded indexes are ported (tests/test_torch_sharded_pipeline.py): a
+    # config's mesh takes distinct cards, so without one it raises, and a
+    # mesh's model axis (tensor parallelism) is still refused where a model loads
+    for tpu in (dict(shard_index=True, mesh_shape=[2]), dict(mesh_shape=[1])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, use_reranker=0, tpu=tconfig.TPUConfig(**tpu)),
                             device="cpu")
+    from easyrag_tpu_torch.models.registry import load_embedder
+    from easyrag_tpu_torch.parallel.mesh import data_model_mesh
+
+    with pytest.raises(NotImplementedError, match="item 13"):
+        load_embedder(str(tmp_path), mesh=data_model_mesh(2, model_parallel=2, devices=["cpu"] * 2), device="cpu")
     # the decode pool is ported; like JAX's it needs static shapes and the
     # on-device decoder, and says so before loading a model
     for tpu in (dict(local_llm_max_new=0), dict(local_llm_max_new=4, local_llm_backend="hf")):
@@ -410,6 +417,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     from easyrag_tpu_torch.serving import api, coalesce, webui  # noqa: F401
     from easyrag_tpu_torch import automerge, compressors, native  # noqa: F401
     from easyrag_tpu_torch.index import artifact  # noqa: F401
+    from easyrag_tpu_torch.parallel import mesh as pmesh, multihost, sharded  # noqa: F401
+    from easyrag_tpu_torch.corpus import html_text, ocr, zedx  # noqa: F401
 
     DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
     root = {tmp!r}
@@ -449,6 +458,16 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
         device="cpu",
     )
     out = [asyncio.run(pipe.run(dict(q))) for q in QUERIES]
+    # the same pipeline with its indexes sharded over two shards on the CPU
+    sharded_pipe = EasyRAGPipeline(
+        EasyRAGConfig(data_path=root, chunk_size=64, chunk_overlap=10, f_topk_2=8, f_topk_3=2,
+                      tpu=TPUConfig(shard_index=True)),
+        llm=StubLLM(), reranker=LLMRerank(scorer, top_n=3, embed_bs=4, embed_type=1), sparse_tokenizer=CharCut(),
+        splitter=SentenceSplitter(64, 10, token_counter=approx_token_count, sentence_splitter=lambda t: [t]),
+        device="cpu", mesh=pmesh.make_mesh([2], devices=["cpu"] * 2),
+    )
+    sharded_out = [asyncio.run(sharded_pipe.run(dict(q))) for q in QUERIES]
+    prepped = html_text.html_to_text("<p>扩容</p><table><tr><td>a</td></tr></table>")
 
     # the non-default options: hierarchical chunks with auto-merging, HyDE,
     # the compressor, int8 heavy storage, the corpus artifact (saved, then
@@ -525,6 +544,9 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu"))
     print(json.dumps({{"contexts": [len(o["contexts"]) for o in out], "answers": [o["answer"] for o in out],
+                      "sharded": [o["contexts"] for o in sharded_out] == [o["contexts"] for o in out],
+                      "sharded_class": type(sharded_pipe.sparse_retriever._resident).__name__,
+                      "prepped": prepped,
                       "fused": sorted(params["layers"][0]["attn"]) + sorted(params["layers"][0]["mlp"]),
                       "embed": sorted(params["embed"]), "tokens": toks.tolist(), "jax_modules": loaded,
                       "rrf_nodes": [len(o["nodes"]) for o in fused], "embedded": emb.stats["batches"],
@@ -553,6 +575,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert all(0 < n <= 6 for n in result["rrf_nodes"]) and result["embedded"] == 1 + len(QUERIES)
     assert all(result["options"]) and result["rebooted"] == result["options"]
     assert result["native_builds"] >= 2  # both routes of the options pipeline's first boot
+    assert result["sharded"] and result["sharded_class"] == "ShardedResidentSparseIndex"
+    assert result["prepped"] == "扩容\n\n| a |\n| --- |\n"
 
 
 def _imported_modules(path):
