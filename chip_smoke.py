@@ -148,7 +148,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    MiniCPM quantized to w8a8, phase 5's generator behind the decode pool)
    and served by ``serving.api.create_app`` (the rerank coalescer, the
    kernel build, the pool's boot warmup) on 127.0.0.1 at an ephemeral port:
-   ``GET /test``, ``GET /ui``, a CORS preflight, then 8 ``POST /v1/rag``
+   ``GET /test``, ``GET /ui``, a CORS preflight, then 6 ``POST /v1/rag``
    at concurrency 4 after one warm request (``tools/bench_serving.py``'s
    pattern); each response's contexts must equal ``run``'s for its query
    without the server and each answer the solo greedy answer at B=1, a
@@ -203,7 +203,33 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    (d) two gloo processes on the card's host (``parallel/multihost.py``)
    each parse their share of 512 of phase 3's files, save it, all-gather
    a per-chunk vector and the result is assembled: nodes, vectors and BM25
-   index equal to a one-process build.
+   index equal to a one-process build;
+13. tensor parallelism on one card (``parallel/tp.py``, shards on
+   ``["cuda:0"] * mp``): (a) ``dryrun_multichip(4, ["cuda:0"] * 4)`` (data
+   2 x model 2: the TP embedder and the sharded indexes in one query step,
+   their stream forms and compressed dtypes, w8a8 under TP, TP greedy and
+   speculative decode, int4 under TP from a fused tree); (b) K3 at the
+   per-shard heads of gte-Qwen2-7B (14 on 2, 7 on 1; B=32, S=512 right
+   padded and B=2, S=256 left padded) against its plain version, each
+   shard's heads against the same heads of the 28-head call bit for bit,
+   timed beside the 28-head call; then phase 7's gte-Qwen2-7B tree rebuilt
+   from its seed, sharded at mp 2 and 4, embedding phase 3's three queries
+   and 32 of its files (512-token bucket, where K3 runs) against the
+   unsharded embedder: bf16 by the smallest per-row cosine (at least
+   ``TP_COSINE``; the unsharded embedder's drift between batch shapes
+   beside it), w8a8 (``quantize_decoder_tree``, ``act_quant``) bit for bit,
+   K3 launched layers x mp times a batch; (c) ``EasyRAGPipeline`` with the
+   w8a8 TP embedder injected over a data 2 x model 2 mesh with
+   ``tpu.shard_index`` (``retrieval_type: 3``, ``rerank_fusion_type: 1``,
+   no reranker, 160 of phase 3's files: dense shards of 128 and 32 rows)
+   against the same boot with the unsharded embedder and no mesh, contexts
+   equal on phase 3's three queries, K3 twice a layer a query; (d) phase
+   5's int4 Qwen2-7B sharded at mp 2 (int8 nibble values, the int4 head
+   replicated) on two prompts of 200 and 120 tokens (bucket 256), 16 new
+   tokens: under w4a8 TP greedy equal to the unsharded greedy of the same
+   unpacked layers and TP spec-7 equal to TP greedy, bit for bit; in bf16
+   both token rows and the first step where they differ (not gated); the
+   TP prefill and decode step beside the unsharded ones.
 
 Every kernel's entry in the JSON line carries its bound at the timed shape
 (the larger of its operations over the card's peak for their type and its
@@ -221,8 +247,9 @@ sites: the prefill's at B=1, S=7680 and the embedder's at the boot's first
 index-build batch, K4's at B=32, S=1152, K6's at B=64, N=20000, and K5's
 second entry at the resident tail's shape; launches from phases 3, 5, 6, 7
 and 9, each kernel's own main path, and the K5 tail's from phase 11's
-stream; phase 10's served requests print their own), the ``nvidia-smi``
-line, and last
+stream; phase 10's served requests print their own), before it a line of
+K3's per-shard times at 28/4, 14/2 and 7/1 heads (phase 13), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -334,12 +361,19 @@ POOL_TIERS, POOL_CHUNK = "2048:2,7680:2", 32
 # 64 keeps the smoke inside its time limit)
 POOL_MAX_NEW = 64
 POOL_PROMPTS = (1800, 1200, 500, 7000, 6000, 1900)
-# 8 served requests (tools/bench_serving.py's default is 12): two waves at
-# concurrency 4 keep the smoke inside its time limit with phase 12
-SERVE_REQUESTS, SERVE_CONCURRENCY = 8, 4
+# 6 served requests (tools/bench_serving.py's default is 12): a wave of 4
+# and 2 that join it keep the smoke inside its time limit with phases 12
+# and 13
+SERVE_REQUESTS, SERVE_CONCURRENCY = 6, 4
 SERVE_TIMEOUT_S = 420  # one served run, (b) or (c), fails past this instead of hanging
 # phase 11: HyDE's and the answer's new tokens (phase 5 runs the flagship's 128)
 OPT_GEN_NEW = 32
+# phase 13: the TP embedder's token cap (its batches land in the 512 bucket,
+# where K3 runs), the chunks it embeds, the TP pipeline's files (two data
+# shards of 128 and 32 docs) and the TP generator's prompts and new tokens
+TP_MAX_LENGTH, TP_CHUNKS, TP_DOCS = 512, 32, 160
+TP_PROMPTS, TP_BUCKET, TP_NEW, TP_SPEC = (200, 120), 256, 16, 7
+TP_COSINE = 0.999  # bf16 TP embedder against the unsharded one, per row
 # the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -3485,6 +3519,270 @@ def phase_sharded(torch, np, tmp, sparse, queries, reranker, phase3_contexts, mo
     shutil.rmtree(work, ignore_errors=True)
 
 
+def k3_shard_bits(torch, np, k3, smi):
+    """K3 at gte-Qwen2-7B's per-shard heads: each shard's head block of a
+    28-on-4 call (B=32, S=512, right padded as the embedder pads; B=2,
+    S=256, left padded as the prefill pads) run alone at 14 on 2 (mp 2) and
+    7 on 1 (mp 4): against its plain version, whether it equals the same
+    heads of the 28-head call bit for bit, and its time beside the 28-head
+    call's. Returns ``{"28/4" | "14/2" | "7/1": (ms, plain_ms, bound_ms,
+    bound_by, sdpa_ms)}`` at the embedder's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+    times, hd = {}, 128
+    for kind, B, S, side in (("embedder", 32, 512, "right"), ("prefill", 2, 256, "left")):
+        lengths = rng.integers(S // 4, S + 1, size=B).tolist()
+        lengths[0] = S
+        args = k3_case(torch, gen, B, S, lengths, side=side)
+        q, k, v, kv_s, kv_e, scale, _ = args
+        full = k3.flash_attention(*args)
+        for nh, nkv in ((28, 4), (14, 2), (7, 1)):
+            mp = 28 // nh
+            same = []
+            for sh in range(mp):
+                sargs = (q[..., sh * nh * hd : (sh + 1) * nh * hd].contiguous(),
+                         k[..., sh * nkv * hd : (sh + 1) * nkv * hd].contiguous(),
+                         v[..., sh * nkv * hd : (sh + 1) * nkv * hd].contiguous(), kv_s, kv_e, scale, nkv)
+                out = k3.flash_attention(*sargs)
+                same.append(bool(torch.equal(out, full[..., sh * nh * hd : (sh + 1) * nh * hd])))
+                if sh == 0:
+                    err, row_rel = k3_compare(torch, k3, sargs, rows=8)
+                    ms = cuda_ms(torch, lambda: k3.flash_attention(*sargs), reps=10)
+                    plain = cuda_ms(torch, lambda: [None for _ in k3_plain_slices(k3, sargs, 8)], reps=2, warmup=1)
+                    flop = k3_flop(np, sargs)
+                    b3 = bound(flop, 2 * sargs[0].nbytes + sargs[1].nbytes + sargs[2].nbytes)
+                    lib = sdpa_ms(torch, *sargs[:3], nh, nkv, kv_s, kv_e, scale)
+            if kind == "embedder":
+                times[f"{nh}/{nkv}"] = (ms, plain, *b3, lib)
+            say(f"(b) K3 {kind} B={B} S={S} {side}-padded at {nh} heads on {nkv} (mp {mp}): max_abs_err {err:.3e} "
+                f"(row-relative {row_rel:.3e}) vs plain; each shard's heads equal to the 28-head call's bit for bit: "
+                f"{same}; kernel {ms:.3f} ms a shard ({flop / ms / 1e9:.1f} TFLOP/s, {b3[0] / ms:.1%} of the bound "
+                f"{b3[0]:.4f} ms), plain {plain:.3f} ms, SDPA {lib:.3f} ms [{smi}]")
+        del args, q, k, v, full
+    return times
+
+
+def first_difference(a, b):
+    """The first (row, step) where two token arrays differ, or None."""
+    diff = [(r, int(j)) for r in range(a.shape[0]) for j in (a[r] != b[r]).nonzero()[0][:1]]
+    return diff[0] if diff else None
+
+
+def phase_tp(torch, np, tmp, queries, generator, mods, smi):
+    """Phase 13: tensor parallelism on one card (``parallel/tp.py``, shards
+    on ``["cuda:0"] * mp``). (a) the dry run over data 2 x model 2; (b)
+    gte-Qwen2-7B at full width and depth, sharded at mp 2 and 4, against the
+    unsharded embedder on phase 3's three queries and 32 chunks (bf16: the
+    smallest per-row cosine; w8a8: bit for bit), K3 counted per shard, and
+    K3 at the per-shard heads; (c) ``EasyRAGPipeline`` with the w8a8 TP
+    embedder over an injected data 2 x model 2 mesh and ``tpu.shard_index``
+    against the same boot unsharded, on phase 3's queries; (d) phase 5's
+    int4 Qwen2-7B sharded at mp 2: greedy and spec-7 on two prompts, w4a8
+    TP greedy equal to unsharded greedy of the same unpacked layers, TP spec
+    equal to TP greedy, bf16's rows printed, prefill and step times."""
+    say("== phase 13: tensor parallelism on one card (the dry run, the TP embedder, the TP pipeline, TP decode)")
+    import gc
+    import shutil
+
+    from easyrag_tpu_torch.config import load_config
+    from easyrag_tpu_torch.corpus.splitter import SentenceSplitter
+    from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
+    from easyrag_tpu_torch.dryrun import dryrun_multichip, unpacked_layers
+    from easyrag_tpu_torch.models import decode as td
+    from easyrag_tpu_torch.models.layers import tp_devices
+    from easyrag_tpu_torch.models.quant import quantize_decoder_tree
+    from easyrag_tpu_torch.models.qwen2 import GTEEmbedder
+    from easyrag_tpu_torch.parallel.mesh import data_model_mesh, make_mesh
+    from easyrag_tpu_torch.parallel.tp import shard_decoder_params
+    from easyrag_tpu_torch.pipeline import EasyRAGPipeline
+
+    dev = torch.device("cuda")
+    k2, k3 = mods["K2"], mods["K3"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the dry run
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, [dev] * 4)
+    check(dry["mesh"] == {"data": 2, "model": 2}, f"(a) the dry run's mesh is {dry['mesh']}")
+    say(f"(a) dryrun_multichip(4, ['cuda:0'] * 4): passed in {time.perf_counter() - t0:.1f} s")
+
+    # (b) the TP embedder at full width and depth
+    k3_times = k3_shard_bits(torch, np, k3, smi)
+    t0 = time.perf_counter()
+    cfg, params = build_embedder(torch, SEED + 12)
+    torch.cuda.synchronize()
+    say(f"(b) gte-Qwen2-7B-instruct: {tree_bytes(params) / 2**30:.2f} GiB of bf16 weights, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    texts = []
+    for f in range(TP_CHUNKS):
+        rel = f"{('director', 'emsplus', 'rcp', 'umac')[f % 4]}/doc{f}.txt"
+        with open(os.path.join(tmp, rel), encoding="utf-8") as fh:
+            texts.append(fh.read())
+    qtexts = [q["query"] for _, q, _ in queries]
+    meshes = {mp: make_mesh([mp], ("model",), devices=[dev] * mp) for mp in (2, 4)}
+
+    def embed(c, tree, expect_mp):
+        tok = EmbedCharTokenizer(c.vocab_size)
+        emb = GTEEmbedder(c, tree, tok, max_length=TP_MAX_LENGTH, embed_type=1, device=dev)
+        k3.launches = 0
+        t = time.perf_counter()
+        out = np.concatenate([emb.get_query_embeddings(qtexts), emb.get_text_embeddings(texts)])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        shapes = [(len(lens), max(lens)) for lens in tok.lengths]
+        n = k3.launches
+        check(n == len(tok.lengths) * c.num_hidden_layers * expect_mp,
+              f"(b) K3 launched {n} times over {len(tok.lengths)} batches, want layers x {expect_mp} per batch")
+        check(bool(np.isfinite(out).all()) and out.shape == (len(qtexts) + len(texts), c.hidden_size),
+              "(b) the embeddings are not finite or of the wrong shape")
+        return out, ms, n, shapes
+
+    results = {}
+    for quant in ("bf16", "w8a8"):
+        if quant == "w8a8":
+            params = quantize_decoder_tree(params, "int8")
+            cfg = dataclasses.replace(cfg, act_quant=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref, ms1, n1, shapes = embed(cfg, params, 1)
+        say(f"(b) {quant} unsharded: {len(ref)} embeddings (batches of (rows, longest) {shapes}) in {ms1:.1f} ms; "
+            f"K3 launches {n1}")
+        if quant == "bf16":  # the unsharded embedder's own drift between batch shapes, beside TP's
+            eight = GTEEmbedder(cfg, params, EmbedCharTokenizer(cfg.vocab_size), max_length=TP_MAX_LENGTH,
+                                embed_batch_size=8, embed_type=1, device=dev).get_text_embeddings(texts)
+            drift = float((eight * ref[len(qtexts):]).sum(axis=1).min())
+            say(f"(b) bf16 unsharded, the 32 chunks in batches of 8 against one batch of 32: smallest per-row "
+                f"cosine {drift:.6f}")
+        for mp, mesh in meshes.items():
+            tree = shard_decoder_params(mesh, cfg, params, axis="model")
+            devs = tp_devices(tree)
+            check(len(devs) == mp and all(d.type == "cuda" for d in devs), f"(b) the mp {mp} tree's shards are {devs}")
+            got, ms, n, _ = embed(cfg, tree, mp)
+            cos = (got * ref).sum(axis=1)
+            exact = bool(np.array_equal(got, ref))
+            results[(quant, mp)] = (float(cos.min()), exact, float(np.abs(got - ref).max()))
+            say(f"(b) {quant} mp {mp}: {ms:.1f} ms (unsharded {ms1:.1f} ms; shards on one card, not a scaling "
+                f"figure); K3 launches {n} ({mp} a layer a batch); smallest per-row cosine to the unsharded "
+                f"{cos.min():.6f}; bit for bit: {exact}; max |diff| {np.abs(got - ref).max():.3e} [{smi}]")
+            del tree
+        if quant == "bf16":
+            del ref
+    for (quant, mp), (cos, exact, _) in results.items():
+        if quant == "bf16":
+            check(cos >= TP_COSINE, f"(b) bf16 mp {mp}: per-row cosine {cos:.6f} below {TP_COSINE}")
+        else:
+            check(exact, f"(b) w8a8 mp {mp}: the TP embeddings differ from the unsharded ones")
+
+    # (c) the pipeline: the w8a8 TP embedder over an injected data x model mesh
+    data = os.path.join(tmp, "tp_corpus")
+    sub_corpus(tmp, data, TP_DOCS)
+    mesh = data_model_mesh(4, model_parallel=2, devices=[dev] * 4)
+    tp_embedder = GTEEmbedder(cfg, shard_decoder_params(mesh, cfg, params, axis="model"),
+                              EmbedCharTokenizer(cfg.vocab_size), max_length=TP_MAX_LENGTH, embed_type=1)
+    one_embedder = GTEEmbedder(cfg, params, EmbedCharTokenizer(cfg.vocab_size), max_length=TP_MAX_LENGTH,
+                               embed_type=1, device=dev)
+
+    def boot(embedder, mesh=None):
+        tpu = {"tpu.shard_index": True, "tpu.mesh_shape": [2, 2], "tpu.mesh_axis_names": ["data", "model"]}
+        pcfg = load_config(os.path.join(REPO, "configs", "easyrag.yaml"), overrides={
+            "data_path": data, "retrieval_type": 3, "rerank_fusion_type": 1, "use_reranker": 0,
+            "cache_path": os.path.join(tmp, "tp_cache" if mesh is not None else "tp_cache_1"),
+            **(tpu if mesh is not None else {}),
+        })
+        k3.launches = 0
+        t = time.perf_counter()
+        pipe = EasyRAGPipeline(
+            pcfg, llm=StubLLM(), embed_model=embedder, sparse_tokenizer=SparseTokenizer(),
+            splitter=SentenceSplitter(pcfg.chunk_size, pcfg.chunk_overlap, token_counter=approx_token_count,
+                                      sentence_splitter=lambda t: [t]),
+            device=dev, mesh=mesh,
+        )
+        torch.cuda.synchronize()
+        return pipe, time.perf_counter() - t, k3.launches
+
+    tp_pipe, secs, n3 = boot(tp_embedder, mesh)
+    index = tp_pipe.dense_retriever.index
+    check(type(index).__name__ == "ShardedDenseIndex" and len(index.shards) == 2,
+          "(c) tpu.shard_index did not shard the dense index over the data axis")
+    check(n3 > 0 and n3 % 2 == 0, f"(c) K3 launched {n3} times in the TP boot")
+    say(f"(c) TP pipeline boot ({len(tp_pipe.nodes)} chunks, dense shards of {[s.width for s in index.shards]} rows, "
+        f"w8a8 embedder at mp 2): {secs:.1f} s, K3 launches {n3}")
+    one_pipe, secs1, n31 = boot(one_embedder)
+    say(f"(c) unsharded boot: {secs1:.1f} s, K3 launches {n31}")
+    for name, q, _ in queries:
+        k3.launches = 0
+        t = time.perf_counter()
+        got = asyncio.run(tp_pipe.run(dict(q)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        n = k3.launches
+        want = asyncio.run(one_pipe.run(dict(q)))
+        check(got["contexts"] and got["contexts"] == want["contexts"],
+              f"(c) query {name!r}: the TP pipeline's contexts differ from the unsharded one's")
+        check(n == 2 * cfg.num_hidden_layers, f"(c) query {name!r}: K3 launched {n} times, want 2 a layer")
+        say(f"(c) query {name!r}: {ms:.1f} ms; contexts equal to the unsharded boot's; K3 launches {n}")
+    del tp_pipe, one_pipe, tp_embedder, one_embedder, params, index
+    shutil.rmtree(data)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) TP decode: phase 5's int4 Qwen2-7B at mp 2
+    gcfg, gparams = generator
+    t0 = time.perf_counter()
+    tp_tree = shard_decoder_params(meshes[2], gcfg, gparams, axis="model")
+    one_tree = unpacked_layers(gparams)
+    torch.cuda.synchronize()
+    check("w_q" in tp_tree["layers"][0]["attn"][0]["q"] and "qkv" not in tp_tree["layers"][0]["attn"][0],
+          "(d) the TP tree is not unfused int8 values")
+    say(f"(d) Qwen2-7B int4 tree sharded at mp 2 (int8 nibble values, head kept int4) and unpacked unsharded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 14)
+    rows = []
+    for n in TP_PROMPTS:  # a repeated phrase, so that drafts are accepted
+        phrase = rng.integers(10, gcfg.vocab_size, size=12).tolist()
+        ids = (phrase * (n // 12 + 1))[:n]
+        rows.append(([0] * (TP_BUCKET - n) + ids, [0] * (TP_BUCKET - n) + [1] * n))
+    ids = torch.tensor([r for r, _ in rows], dtype=torch.int32, device=dev)
+    mask = torch.tensor([m for _, m in rows], dtype=torch.int32, device=dev)
+    eos = torch.tensor(QWEN2_EOS, dtype=torch.int32, device=dev)
+
+    def run(c, tree, spec=0):
+        st = {}
+        k2.launches = k3.launches = 0
+        if spec:
+            out = td.generate_greedy_spec(c, tree, ids, mask, eos, TP_NEW, draft_len=spec, stats=st)
+        else:
+            out = td.generate_greedy(c, tree, ids, mask, eos, TP_NEW, stats=st)
+        return out.cpu().numpy(), st, k2.launches, k3.launches
+
+    a8 = dataclasses.replace(gcfg, act_quant=True)
+    for label, c in (("w4a8", a8), ("bf16", gcfg)):
+        run(c, tp_tree)  # warm-up
+        tp_g, st, l2, l3 = run(c, tp_tree)
+        tp_s, st_s, _, _ = run(c, tp_tree, spec=TP_SPEC)
+        one_g, st1, _, _ = run(c, one_tree)
+        check(l3 == gcfg.num_hidden_layers * 2, f"(d) {label}: K3 launched {l3} times in the TP prefill, want 28 x 2")
+        step, step1 = st["decode_ms"] / max(st["steps"], 1), st1["decode_ms"] / max(st1["steps"], 1)
+        say(f"(d) {label} TP greedy tokens {tp_g.tolist()}; prefill {st['prefill_ms']:.1f} ms (unsharded "
+            f"{st1['prefill_ms']:.1f} ms), decode step {step:.2f} ms (unsharded {step1:.2f} ms), {st['steps']} steps; "
+            f"spec {TP_SPEC}: {st_s['steps']} verify blocks in {st_s['decode_ms']:.1f} ms; K3 launches in the TP "
+            f"run {l3}, K2 {l2} (the replicated int4 head) [{smi}]")
+        spec_same, one_same = bool((tp_s == tp_g).all()), bool((one_g == tp_g).all())
+        say(f"(d) {label}: TP spec equal to TP greedy: {spec_same} (first difference {first_difference(tp_s, tp_g)}); "
+            f"TP greedy equal to unsharded greedy: {one_same} (first difference {first_difference(one_g, tp_g)}); "
+            f"unsharded tokens {one_g.tolist()}")
+        if label == "w4a8":
+            check(spec_same, "(d) w4a8: TP spec tokens differ from TP greedy's")
+            check(one_same, "(d) w4a8: TP greedy tokens differ from the unsharded greedy tokens")
+    del tp_tree, one_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"peak device memory in phase 13: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return k3_times
+
+
 def main() -> int:
     try:
         import torch
@@ -3556,6 +3854,9 @@ def main() -> int:
             lap("phase 11")
             phase_sharded(torch, np, tmp, sparse, queries, minicpm, contexts3, mods, smi)
             lap("phase 12")
+            del minicpm
+            k3_shard_times = phase_tp(torch, np, tmp, queries, generator, mods, smi)
+            lap("phase 13")
         loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "easyrag_tpu")]
         check(not loaded, f"something imported JAX or the JAX package: {sorted(loaded)[:5]}")
     except SmokeFailure as e:
@@ -3587,6 +3888,8 @@ def main() -> int:
         entry("bm25_scores", "bm25_scatter.cu", "easyrag_tpu/ops/bm25_resident.py:141", tail_launches,
               tail_times[2], tail_times[0], tail_times[1], *tail_times[3:]),
     ]
+    print("K3 per shard (gte-Qwen2-7B, B=32, S=512; heads/KV heads: ms, plain_ms, bound_ms, bound_by, sdpa_ms): "
+          + json.dumps(k3_shard_times))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,8 @@ class TPUConfig:
     JAX package's name and fields, so one YAML file configures both
     packages. ``mesh_shape`` / ``shard_index`` shard the retrieval indexes
     over the mesh's ``data`` axis (``parallel/``); a ``model`` axis wider
-    than 1 raises ``NotImplementedError`` where a model is loaded (tensor
-    parallelism is not ported yet)."""
+    than 1 (``mesh_axis_names: [data, model]``) loads the gte-Qwen2
+    embedder tensor-parallel over it (``parallel/tp.py``)."""
 
     mesh_shape: Optional[List[int]] = None  # None -> all devices on one axis
     mesh_axis_names: List[str] = field(default_factory=lambda: ["data"])

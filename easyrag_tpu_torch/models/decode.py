@@ -37,7 +37,12 @@ verify block go to spare slots past the end instead of being dropped, and
 those slots feed no emitted token.
 
 The parameter tree is the JAX package's (nested dicts, ``models/layers.py``
-linears), so trees convert leaf by leaf (``models/convert.py``).
+linears), so trees convert leaf by leaf (``models/convert.py``). A
+tensor-parallel tree (``parallel/tp.py``) runs every layer through
+``layers.tp_layer``: one KV cache per shard on the shard's device, K3 and
+the cache attention per shard at its head counts, the row-parallel sums,
+norms, embedding and head on the first device. The decode pool's rows
+(:class:`PoolRows`) take unsharded trees only, as JAX's pool does.
 """
 
 from __future__ import annotations
@@ -53,7 +58,19 @@ import torch
 from ..devices import resolve_device
 from ..ops.flash64 import apply_rope
 from ..ops.flash_attention import flash_attention, flash_attention_plain
-from .layers import DecoderConfig, embed, linear, mlp_residual, qkv_proj, rms_norm, rope_tables
+from .layers import (
+    DecoderConfig,
+    embed,
+    is_tp,
+    linear,
+    mlp_residual,
+    qkv_proj,
+    rms_norm,
+    rope_tables,
+    shard_config,
+    tp_devices,
+    tp_layer,
+)
 
 Cache = List[Dict[str, torch.Tensor]]
 MASK_VALUE = float(torch.finfo(torch.float32).min)
@@ -65,7 +82,14 @@ def _dtype(params: Dict[str, Any]) -> torch.dtype:
 
 
 def init_cache(cfg: DecoderConfig, batch: int, total_len: int, dtype: torch.dtype, device) -> Cache:
-    """Per-layer K/V buffers, rotary already applied at write time."""
+    """Per-layer K/V buffers, rotary already applied at write time. A list
+    of devices (a tensor-parallel tree's shards, ``layers.tp_devices``)
+    gives each layer one buffer pair per shard, on the shard's device with
+    its ``nkv / mp`` heads."""
+    if isinstance(device, (list, tuple)):
+        scfg = shard_config(cfg, len(device))
+        per_shard = [init_cache(scfg, batch, total_len, dtype, d) for d in device]
+        return [list(layer) for layer in zip(*per_shard)]
     shape = (batch, total_len, cfg.num_key_value_heads, cfg.hd)
     return [
         {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -89,10 +113,21 @@ def _prefill_layer(
     kv_end: torch.Tensor,  # [B] int32
     cache: Dict[str, torch.Tensor],
 ) -> torch.Tensor:
-    """One decoder layer over the full prompt; K/V land in ``cache[:, :S]``."""
-    b, s, _ = x.shape
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    """One decoder layer over the full prompt; K/V land in ``cache[:, :S]``
+    (a tensor-parallel layer: in each shard's cache, its attention at the
+    shard's head counts)."""
+    if is_tp(p):
+        return tp_layer(cfg, p, x, lambda sh, scfg, q, k, v: _prefill_attend(
+            scfg, q, k, v, *(t.to(q.device) for t in (cos, sin, kv_start, kv_end)), cache[sh]))
     q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
+    return mlp_residual(cfg, p, x, _prefill_attend(cfg, q, k, v, cos, sin, kv_start, kv_end, cache))
+
+
+def _prefill_attend(cfg: DecoderConfig, q, k, v, cos, sin, kv_start, kv_end, cache) -> torch.Tensor:
+    """The prefill's attention between the projections: RoPE, the cache
+    write, then K3 or its plain version; ``[B, S, nh * hd]``."""
+    b, s = q.shape[:2]
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     cache["k"][:, :s] = k
@@ -100,11 +135,10 @@ def _prefill_layer(
     # K3 wherever the JAX package runs the stock kernel; its einsum path elsewhere.
     # The CUDA kernel takes head_dim up to 512 and raises past it.
     attend = flash_attention if use_flash(hd, s) else flash_attention_plain
-    out = attend(
+    return attend(
         q.reshape(b, s, nh * hd), k.reshape(b, s, nkv * hd), v.reshape(b, s, nkv * hd).contiguous(),
         kv_start, kv_end, hd ** -0.5, nkv,
     )
-    return mlp_residual(cfg, p, x, out)
 
 
 def _cache_operands(cache: Dict[str, torch.Tensor], t: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -198,23 +232,36 @@ def _decode_layer(
     row writes that slot (the uniform left-padded layout). ``pos`` a ``[B]``
     tensor: row ``i`` writes its own slot (JAX's ``_cache_write``), in cache
     row ``rows.index[i]`` when ``rows`` is given, and the norms and the cache
-    attention then run row by row (:class:`PoolRows`)."""
+    attention then run row by row (:class:`PoolRows`). A tensor-parallel
+    layer attends on every shard against its cache; the decode pool's rows
+    are not sharded."""
+    if is_tp(p):
+        if rows is not None:
+            raise ValueError("the decode pool runs unsharded trees: tensor-parallel rows are not supported")
+        return tp_layer(cfg, p, x, lambda sh, scfg, q, k, v: _decode_attend(
+            scfg, q, k, v, pos if isinstance(pos, int) else pos.to(q.device),
+            *(t.to(q.device) for t in (kv_valid, cos, sin)), cache[sh], None, x.dtype))
     norm = partial(_row_norm, per_row=True) if rows is not None else rms_norm
     q, k, v = qkv_proj(cfg, p["attn"], norm(x, p["input_norm"], cfg.rms_norm_eps))
+    out = _decode_attend(cfg, q, k, v, pos, kv_valid, cos, sin, cache, rows, x.dtype)
+    return mlp_residual(cfg, p, x, out, norm=norm)
+
+
+def _decode_attend(cfg: DecoderConfig, q, k, v, pos, kv_valid, cos, sin, cache, rows, dtype) -> torch.Tensor:
+    """A single step's attention between the projections: RoPE, the cache
+    write at ``pos``, attention over the cache; ``[B, 1, nh * hd]``."""
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if isinstance(pos, int):
         cache["k"][:, pos] = k[:, 0]
         cache["v"][:, pos] = v[:, 0]
     else:
-        index = rows.index if rows is not None else torch.arange(x.shape[0], device=x.device)
+        index = rows.index if rows is not None else torch.arange(q.shape[0], device=q.device)
         cache["k"][index, pos] = k[:, 0]
         cache["v"][index, pos] = v[:, 0]
     if rows is not None:
-        out = _attend_rows(cfg, q, cache, kv_valid[:, None, :], rows, x.dtype)
-    else:
-        out = _attend_cache(cfg, q, *_cache_operands(cache, kv_valid.shape[1]), kv_valid[:, None, :], x.dtype)
-    return mlp_residual(cfg, p, x, out, norm=norm)
+        return _attend_rows(cfg, q, cache, kv_valid[:, None, :], rows, dtype)
+    return _attend_cache(cfg, q, *_cache_operands(cache, kv_valid.shape[1]), kv_valid[:, None, :], dtype)
 
 
 def _verify_layer(
@@ -236,19 +283,32 @@ def _verify_layer(
     shapes, so each row rounds as a single step does; the projections take
     all ``B*Q`` rows at once. With ``rows`` (a decode pool's step) row ``r``
     is cache row ``rows.index[r]``, and norms and attention also run one row
-    at a time (:class:`PoolRows`)."""
+    at a time (:class:`PoolRows`). A tensor-parallel layer attends on every
+    shard against its cache with the same per-position shapes."""
     per_row = rows is not None
+    if is_tp(p):
+        if per_row:
+            raise ValueError("the decode pool runs unsharded trees: tensor-parallel rows are not supported")
+        return tp_layer(cfg, p, x, lambda sh, scfg, q, k, v: _verify_attend(
+            scfg, q, k, v, *(t.to(q.device) for t in (slots, allowed, cos, sin)), cache[sh], None, x.dtype),
+            norm=_row_norm)
     q, k, v = qkv_proj(cfg, p["attn"], _row_norm(x, p["input_norm"], cfg.rms_norm_eps, per_row))
+    out = _verify_attend(cfg, q, k, v, slots, allowed, cos, sin, cache, rows, x.dtype)
+    return mlp_residual(cfg, p, x, out, norm=partial(_row_norm, per_row=per_row))
+
+
+def _verify_attend(cfg: DecoderConfig, q, k, v, slots, allowed, cos, sin, cache, rows, dtype) -> torch.Tensor:
+    """A verify block's attention between the projections: RoPE, the cache
+    writes at ``slots``, attention over the cache one position at a time;
+    ``[B, Q, nh * hd]``."""
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    index = rows.index if per_row else torch.arange(x.shape[0], device=x.device)
+    index = rows.index if rows is not None else torch.arange(q.shape[0], device=q.device)
     cache["k"][index[:, None], slots] = k
     cache["v"][index[:, None], slots] = v
-    if per_row:
-        out = _attend_rows(cfg, q, cache, allowed, rows, x.dtype)
-    else:
-        out = _attend_cache(cfg, q, *_cache_operands(cache, allowed.shape[-1]), allowed, x.dtype)
-    return mlp_residual(cfg, p, x, out, norm=partial(_row_norm, per_row=per_row))
+    if rows is not None:
+        return _attend_rows(cfg, q, cache, allowed, rows, dtype)
+    return _attend_cache(cfg, q, *_cache_operands(cache, allowed.shape[-1]), allowed, dtype)
 
 
 def _lm_logits(cfg: DecoderConfig, params: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
@@ -316,7 +376,7 @@ def generate_greedy(
     b, s = input_ids.shape
     eos0 = int(eos_ids[0])
     t0 = time.perf_counter()
-    cache = init_cache(cfg, b, s + max_new_tokens, _dtype(params), dev)
+    cache = init_cache(cfg, b, s + max_new_tokens, _dtype(params), tp_devices(params) or dev)
     lengths = attention_mask.sum(dim=1).to(torch.int32)
     tok = _lm_logits(cfg, params, _prefill(cfg, params, input_ids, attention_mask, cache)).argmax(-1)
     if stats is not None:
@@ -404,7 +464,7 @@ def generate_greedy_spec(
     t_cache = t_total + draft_len  # a late block's slots past t_total feed no emitted token
     eos0 = int(eos_ids[0])
     t0 = time.perf_counter()
-    cache = init_cache(cfg, b, t_cache, _dtype(params), dev)
+    cache = init_cache(cfg, b, t_cache, _dtype(params), tp_devices(params) or dev)
     lengths = attention_mask.sum(dim=1).to(torch.int32)
     first = _lm_logits(cfg, params, _prefill(cfg, params, input_ids, attention_mask, cache)).argmax(-1)
     if stats is not None:

@@ -25,6 +25,11 @@ int4 (``w_p``/``scale``), each with an optional bias ``b``, computed by the
 one :func:`linear`. With ``DecoderConfig.act_quant`` (w8a8, w4a8) every
 projection quantizes its activations per token to int8 and contracts s8 x s8
 exactly in s32 (``torch._int_mm``), as JAX's ``layers._linear(..., a8)``.
+
+The tree form also takes the tensor-parallel trees of ``parallel/tp.py``
+(:func:`tp_layer`, :func:`row_parallel_linear`): one process drives every
+shard, and the all-reduce that JAX's compiler inserts is a sum of the
+partial products on the first device, in shard order.
 """
 
 from __future__ import annotations
@@ -336,9 +341,14 @@ def quantize_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     and ``x_q = round(x / xs)``. JAX's compiled ``_linear`` takes the
     ``/ 127`` as a product with the f32 reciprocal, so this does too."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    xs = torch.where(amax > 0, amax, torch.ones_like(amax)) * (1.0 / 127.0)
+    xs = token_scales(xf.abs().amax(dim=-1, keepdim=True))
     return torch.round(xf / xs).to(torch.int8), xs
+
+
+def token_scales(amax: torch.Tensor) -> torch.Tensor:
+    """Per-token f32 scales from the per-token ``amax``:
+    ``where(amax > 0, amax, 1) * (1 / 127)``."""
+    return torch.where(amax > 0, amax, torch.ones_like(amax)) * (1.0 / 127.0)
 
 
 def a8_product(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -392,19 +402,24 @@ def linear(x: torch.Tensor, p: Dict[str, torch.Tensor], a8: bool = False) -> tor
     return y
 
 
-def mlp(p: Dict[str, Any], x: torch.Tensor, a8: bool = False) -> torch.Tensor:
-    """SiLU MLP of a tree layer; ``gateup`` is the fused gate+up, split at
-    its midpoint (``quant.fuse_decode_tree`` fuses equal widths only). The
-    activation and the product are taken in place in the gate's fresh
-    buffer: at the embedder's largest batch each ``[B, S, intermediate]``
-    buffer is ~10 GB."""
+def mlp_act(p: Dict[str, Any], x: torch.Tensor, a8: bool = False) -> torch.Tensor:
+    """``silu(gate) * up`` of a tree layer's MLP, the down projection's
+    input; ``gateup`` is the fused gate+up, split at its midpoint
+    (``quant.fuse_decode_tree`` fuses equal widths only). The activation and
+    the product are taken in place in the gate's fresh buffer: at the
+    embedder's largest batch each ``[B, S, intermediate]`` buffer is ~10 GB."""
     if "gateup" in p:
         y = linear(x, p["gateup"], a8)
         inter = y.shape[-1] // 2
         gate, up = y[..., :inter], y[..., inter:]
     else:
         gate, up = linear(x, p["gate"], a8), linear(x, p["up"], a8)
-    return linear(F.silu(gate, inplace=True).mul_(up), p["down"], a8)
+    return F.silu(gate, inplace=True).mul_(up)
+
+
+def mlp(p: Dict[str, Any], x: torch.Tensor, a8: bool = False) -> torch.Tensor:
+    """SiLU MLP of a tree layer (:func:`mlp_act`, then ``down``)."""
+    return linear(mlp_act(p, x, a8), p["down"], a8)
 
 
 def qkv_proj(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
@@ -482,7 +497,12 @@ def attention(
 def decoder_layer(
     cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, kv_start, kv_end, cos, sin
 ) -> torch.Tensor:
-    """One pre-norm tree layer (``layers.py::decoder_layer`` without Gemma)."""
+    """One pre-norm tree layer (``layers.py::decoder_layer`` without Gemma);
+    a tensor-parallel layer (:func:`tp_layer`) runs :func:`attention` on
+    every shard at the shard's head counts."""
+    if is_tp(p):
+        return tp_layer(cfg, p, x, lambda s, scfg, q, k, v: attention(
+            scfg, q, k, v, *(t.to(q.device) for t in (kv_start, kv_end, cos, sin))))
     q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
     return mlp_residual(cfg, p, x, attention(cfg, q, k, v, kv_start, kv_end, cos, sin))
 
@@ -527,3 +547,128 @@ def embed(
     if cfg.gemma:
         return h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
     return h * cfg.scale_emb if cfg.scale_emb != 1.0 else h
+
+
+# -- tensor parallelism: the layer trees of parallel/tp.py ---------------------
+#
+# A tensor-parallel layer holds ``attn`` and ``mlp`` as lists of per-shard
+# dicts (shard ``s`` on the ``s``-th ``model`` device): q, k, v, gate and up
+# split by output rows (column parallel), o and down by input columns (row
+# parallel) with their scale and bias whole on every shard. The norms, the
+# embedding and the head stay on the first device, which also holds the
+# residual stream. One process drives every shard; JAX's GSPMD inserts the
+# all-reduce that :func:`row_parallel_linear` performs by hand.
+
+
+def is_tp(p: Dict[str, Any]) -> bool:
+    """Whether a tree layer is tensor-parallel (per-shard ``attn`` list)."""
+    return isinstance(p.get("attn"), list)
+
+
+def leaf_device(p: Dict[str, torch.Tensor]) -> torch.device:
+    """The device of a linear leaf's tensors."""
+    return next(iter(p.values())).device
+
+
+def tp_devices(params: Dict[str, Any]) -> Optional[list]:
+    """The shard devices of a tensor-parallel tree, in shard order; None for
+    an unsharded tree."""
+    layers = params["layers"]
+    if not layers or not is_tp(layers[0]):
+        return None
+    return [leaf_device(a["q"]) for a in layers[0]["attn"]]
+
+
+def shard_config(cfg: DecoderConfig, mp: int) -> DecoderConfig:
+    """The config one of ``mp`` shards computes with: its query and KV
+    heads and its slice of the MLP, ``head_dim`` kept explicit (``hd``
+    would otherwise follow the shard's head count)."""
+    return dataclasses.replace(
+        cfg, num_attention_heads=cfg.num_attention_heads // mp, num_key_value_heads=cfg.num_key_value_heads // mp,
+        intermediate_size=cfg.intermediate_size // mp, head_dim=cfg.hd,
+    )
+
+
+def row_parallel_linear(xs: list, ps: list, a8: bool = False) -> torch.Tensor:
+    """A row-parallel linear: shard ``s`` contracts its slice of the input,
+    ``xs[s]`` (on its device), with its input columns ``ps[s]``; the partial
+    products are copied to shard 0's device and summed there in shard order,
+    after every shard's product has been issued. Then the scale and the bias
+    apply once, as JAX's dot, all-reduce, scale computes it.
+
+    Float and int8 weight-only leaves form each partial in f32
+    (:func:`f32_product`), sum them in f32 and round the sum once to the
+    activations' dtype, as the unsharded product rounds its f32 sums once
+    (in bf16, JAX's all-reduce adds bf16 partials). ``a8`` (w8a8; the int8
+    nibble values of w4a8 under TP): the per-token amax is the max over the
+    shards' amaxes, which is exact; every shard quantizes its slice with the
+    global scales (:func:`token_scales`, as :func:`quantize_tokens` does)
+    and the s32 partials sum exactly in int32 before :func:`rescale_s32`, so
+    the product equals the unsharded :func:`a8_product` bit for bit."""
+    if any("w_p" in p for p in ps):
+        raise ValueError("a row-parallel leaf holds int8 values (parallel/tp.py unpacks int4)")
+    first = xs[0].device
+    int8 = "w_q" in ps[0]
+    if a8 and int8:
+        xfs = [x.float() for x in xs]
+        amaxes = [xf.abs().amax(dim=-1, keepdim=True) for xf in xfs]
+        amax = amaxes[0]
+        for m in amaxes[1:]:
+            amax = torch.maximum(amax, m.to(first))
+        xsc = token_scales(amax)
+        parts = []
+        for xf, p in zip(xfs, ps):
+            x_q = torch.round(xf / xsc.to(xf.device)).to(torch.int8)
+            parts.append(int8_matmul(x_q.reshape(-1, x_q.shape[-1]), p["w_q"]))
+        y = parts[0]
+        for part in parts[1:]:
+            y = y + part.to(first)
+        y = rescale_s32(y.reshape(*xs[0].shape[:-1], y.shape[-1]), xsc, ps[0]["scale"], xs[0].dtype)
+    else:
+        parts = [f32_product(x, p["w_q"].to(x.dtype) if int8 else p["w"]) for x, p in zip(xs, ps)]
+        y = parts[0]
+        for part in parts[1:]:
+            y = y + part.to(first)
+        y = y.to(xs[0].dtype)
+        if int8:
+            y = y * ps[0]["scale"].to(y.dtype)
+    if "b" in ps[0]:
+        y = y + ps[0]["b"]
+    return y
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` in f32 for ``x`` and ``w`` of one dtype: a bf16 product
+    on the card keeps cuBLAS's f32 sums unrounded (``torch.mm``'s
+    ``out_dtype``), on the CPU it multiplies the f32 upcasts."""
+    if x.dtype == torch.float32:
+        return x @ w.t()
+    if x.device.type == "cuda":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return x.float() @ w.float().t()
+
+
+def tp_layer(cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attend, norm=rms_norm) -> torch.Tensor:
+    """One pre-norm layer over a tensor-parallel layer ``p``, ``x`` on the
+    first device. The input norm runs there once and its output goes to
+    every shard; shard ``s`` projects q, k and v with its rows
+    (:func:`qkv_proj` at :func:`shard_config`'s head counts) and
+    ``attend(s, shard_cfg, q, k, v)`` gives its ``[..., nh/mp * hd]``
+    attention output; o is row parallel. The post norm, then per shard
+    ``silu(gate) * up`` over its slice of the MLP, and a row-parallel down
+    projection. Residual adds (MiniCPM's ``residual_scale``) run on the
+    first device. ``norm(x, weight, eps)`` is both norms (the verify block
+    passes one that reduces position by position)."""
+    mp = len(p["attn"])
+    scfg = shard_config(cfg, mp)
+    a8, r, eps = cfg.act_quant, cfg.residual_scale, cfg.rms_norm_eps
+    h = norm(x, p["input_norm"], eps)
+    outs = []
+    for s, pa in enumerate(p["attn"]):
+        q, k, v = qkv_proj(scfg, pa, h.to(leaf_device(pa["q"])))
+        outs.append(attend(s, scfg, q, k, v))
+    x = x + row_parallel_linear(outs, [pa["o"] for pa in p["attn"]], a8) * r
+    h = norm(x, p["post_norm"], eps)
+    acts = [mlp_act(pm, h.to(leaf_device(pm["down"])), a8) for pm in p["mlp"]]
+    return x + row_parallel_linear(acts, [pm["down"] for pm in p["mlp"]], a8) * r

@@ -123,3 +123,17 @@ def fuse_decode_tree(params: Dict[str, Any]) -> Dict[str, Any]:
                 new["mlp"] = {"gateup": _concat(parts), **{k: v for k, v in mlp.items() if k not in ("gate", "up")}}
         out["layers"].append(new)
     return out
+
+
+def unfuse_linear(fused: Dict[str, torch.Tensor], outs: List[int]) -> List[Dict[str, torch.Tensor]]:
+    """Split a fused packed linear (``qkv``, ``gateup``) back into row blocks
+    of sizes ``outs`` (views of its ``w_p``, ``scale`` and ``b``)."""
+    parts = []
+    start = 0
+    for n in outs:
+        part = {"w_p": fused["w_p"][start : start + n], "scale": fused["scale"][start : start + n]}
+        if "b" in fused:
+            part["b"] = fused["b"][start : start + n]
+        parts.append(part)
+        start += n
+    return parts

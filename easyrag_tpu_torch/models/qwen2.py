@@ -6,7 +6,10 @@ Qwen2-7B-Instruct. :class:`GTEEmbedder` is the dense route's embedder
 (gte-Qwen2-7B-instruct): the "Instruct: ... \\nQuery: " query prefix,
 ``max_length`` 8192, inputs padded to (batch, sequence) buckets, the decoder
 stack over the JAX-layout tree (``layers.forward_hidden``: K3 in every layer
-at ``S % 128 == 0``), last-token pooling and L2 normalization in f32.
+at ``S % 128 == 0``), last-token pooling and L2 normalization in f32. A
+tensor-parallel tree (``parallel/tp.py``) runs K3 on every shard at the
+shard's head counts and pools on the first ``model`` device
+(:func:`load_gte_embedder` with a mesh whose ``model`` axis is wider than 1).
 
 Pooling reads position ``sum(mask) - 1``, the last real token only under
 right padding, as JAX's ``GTEEmbedder._embed`` does (it never passes
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from ..devices import resolve_device
-from .layers import DecoderConfig, forward_hidden
+from .layers import DecoderConfig, forward_hidden, tp_devices
 
 QUERY_INSTRUCT = (
     "Instruct: Given a web search query, retrieve relevant passages that "
@@ -87,8 +90,10 @@ def _tree_to(tree, device: torch.device):
 class GTEEmbedder:
     """Query/text embedder with the GTE contract, on ``device``: the card
     unless the caller asks for the CPU (the tree moves there if it is not
-    already). ``stats`` counts the batches, real tokens and padded tokens
-    embedded so far."""
+    already). A tensor-parallel tree stays where its shards are and the
+    embedder runs on its first ``model`` device, the one holding the
+    embedding and the norms; ``device`` is not read then. ``stats`` counts
+    the batches, real tokens and padded tokens embedded so far."""
 
     def __init__(
         self,
@@ -106,9 +111,13 @@ class GTEEmbedder:
                 "GTEEmbedder pools at sum(mask) - 1, the last real token only under right padding; "
                 "a left-padding tokenizer is ROADMAP Queue 3 (right-padding-only pooling)"
             )
-        self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = _tree_to(params, self.device)
+        if tp_devices(params) is not None:
+            self.device = params["final_norm"].device
+            self.params = params
+        else:
+            self.device = resolve_device(device)
+            self.params = _tree_to(params, self.device)
         self.tokenizer = tokenizer
         self.max_length = max_length
         self.embed_batch_size = embed_batch_size
@@ -170,15 +179,23 @@ class GTEEmbedder:
         return self._embed([get_node_content(n, et) for n in nodes])
 
 
-def load_gte_embedder(model_dir: str, quant: str = "", device="cuda", embed_type: int = 0) -> GTEEmbedder:
+def load_gte_embedder(model_dir: str, quant: str = "", device="cuda", embed_type: int = 0, mesh=None) -> GTEEmbedder:
     """A local gte-Qwen2 checkpoint directory -> :class:`GTEEmbedder` (the
-    gte branch of ``easyrag_tpu/models/registry.py::load_embedder`` without
-    the mesh): weights through ``hf_loader.load_qwen2_embedder``, the
-    tokenizer from the same directory, 128-row embedding batches."""
+    gte branch of ``easyrag_tpu/models/registry.py::load_embedder``):
+    weights through ``hf_loader.load_qwen2_embedder``, the tokenizer from
+    the same directory, 128-row embedding batches. With a ``mesh`` whose
+    ``model`` axis is wider than 1 the weights load onto its first
+    ``model`` device and shard tensor-parallel over that axis
+    (``parallel.tp.shard_decoder_params``) instead of going to ``device``."""
     from transformers import AutoTokenizer
 
     from .hf_loader import load_qwen2_embedder
 
-    cfg, params = load_qwen2_embedder(model_dir, quant=quant, device=device)
+    tp = mesh is not None and mesh.shape.get("model", 1) > 1
+    cfg, params = load_qwen2_embedder(model_dir, quant=quant, device=mesh.model_devices()[0] if tp else device)
+    if tp:
+        from ..parallel.tp import shard_decoder_params
+
+        params = shard_decoder_params(mesh, cfg, params, axis="model")
     tokenizer = AutoTokenizer.from_pretrained(model_dir, trust_remote_code=True)
     return GTEEmbedder(cfg, params, tokenizer, embed_type=embed_type, embed_batch_size=128, device=device)

@@ -28,12 +28,6 @@ def _require_local(name: str, kind: str) -> str:
     )
 
 
-def _check_mesh(mesh) -> None:
-    """A ``model`` axis wider than 1 asks for tensor parallelism."""
-    if mesh is not None and "model" in mesh.axis_names and dict(mesh.shape).get("model", 1) > 1:
-        raise NotImplementedError("tensor-parallel models over a mesh are ROADMAP Queue 1, item 13")
-
-
 def load_embedder(
     name: str,
     cache_folder: str = "",
@@ -43,14 +37,16 @@ def load_embedder(
     device: torch.device | str = "cuda",
 ):
     """Dense embedder by name. gte/Zhihui names take the Qwen2 last-token
-    pool (``qwen2.load_gte_embedder``, 128-row embedding batches); any other
-    name a sentence-transformers model (``STEmbedder``, on the host)."""
+    pool (``qwen2.load_gte_embedder``, 128-row embedding batches); with a
+    ``mesh`` whose ``model`` axis is wider than 1 its decoder weights shard
+    tensor-parallel over that axis (``parallel/tp.py``). Any other name is
+    a sentence-transformers model (``STEmbedder``, on the host), which
+    ignores the mesh, as in JAX."""
     model_dir = _require_local(name, "embedding model")
-    _check_mesh(mesh)
     if "gte" in name or "Zhihui" in name:
         from .qwen2 import load_gte_embedder
 
-        return load_gte_embedder(model_dir, quant=quant, device=device, embed_type=embed_type)
+        return load_gte_embedder(model_dir, quant=quant, device=device, embed_type=embed_type, mesh=mesh)
     from .st_embedder import STEmbedder
 
     return STEmbedder.from_pretrained(model_dir, embed_type=embed_type)
@@ -66,7 +62,6 @@ def load_reranker(
     quant: str = "",
     cascade_keep: int = 32,
     cascade_carry: bool = False,
-    mesh=None,
     device: torch.device | str = "cuda",
 ):
     """Reranker by name (``rerankers.py:142-184`` dispatch): a
@@ -76,7 +71,6 @@ def load_reranker(
     from ..rerankers import LLMRerank, SentenceTransformerRerank
 
     model_dir = _require_local(name, "reranker model")
-    _check_mesh(mesh)
     if use_st:
         return SentenceTransformerRerank(top_n=top_n, model=model_dir)
     if "bge-reranker-v2-minicpm-layerwise" in name:

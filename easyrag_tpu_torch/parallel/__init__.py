@@ -1,5 +1,5 @@
-"""Sharded retrieval over a mesh of devices and the multi-host index build
-(port of ``easyrag_tpu/parallel``; tensor parallelism is not ported yet)."""
+"""Sharded retrieval over a mesh of devices, tensor-parallel decoders and
+the multi-host index build (port of ``easyrag_tpu/parallel``)."""
 
 from .mesh import Mesh, data_model_mesh, make_mesh  # noqa: F401
 from .sharded import (  # noqa: F401
@@ -7,3 +7,4 @@ from .sharded import (  # noqa: F401
     ShardedResidentSparseIndex,
     ShardedSparseScorer,
 )
+from .tp import shard_decoder_params  # noqa: F401

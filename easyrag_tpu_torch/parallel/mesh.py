@@ -2,8 +2,8 @@
 
 A mesh is an array of ``torch.device`` with named axes. One process drives
 it, as JAX's single controller drives its ``Mesh``: the corpus shards over
-the ``data`` axis (``parallel/sharded.py``); a ``model`` axis is tensor
-parallelism, which the port does not have yet. By default a mesh takes
+the ``data`` axis (``parallel/sharded.py``) and a decoder's weights over
+the ``model`` axis (tensor parallelism, ``parallel/tp.py``). By default a mesh takes
 distinct cards ``cuda:0``, ``cuda:1``, ...; a caller may pass its own
 devices, repeated ones included (``["cuda:0"] * 4`` runs four shards on one
 card, ``["cpu"] * 4`` on the CPU, as the tests do).
@@ -41,6 +41,13 @@ class Mesh:
         if "data" not in self.axis_names:
             return list(self.devices.flat)
         moved = np.moveaxis(self.devices, self.axis_names.index("data"), 0)
+        return list(moved.reshape(moved.shape[0], -1)[:, 0])
+
+    def model_devices(self, axis: str = "model") -> list:
+        """One device per shard of ``axis``: ``devices[0, ..., s, ..., 0]``,
+        the ``axis`` devices of data row 0 (tensor-parallel weights are not
+        repeated over the other axes)."""
+        moved = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
         return list(moved.reshape(moved.shape[0], -1)[:, 0])
 
     def __repr__(self) -> str:

@@ -13,7 +13,7 @@ each shard must start where a block of the single-chip row starts and end
 where the single-chip row ends; then no pad exists to surface, and the
 pruned top-k (K6, rows a multiple of 8) runs on every shard where it runs
 on the single-chip row. For a small corpus the last ranges may be empty:
-those shards are not built. A queryA query
+those shards are not built. A query
 batch is uploaded to every shard, each shard scores its range and takes a
 local top-k with the single-chip code (so the pruned top-k, K6 on the card,
 runs per shard), and only then are the ``D * k`` candidates, with global doc

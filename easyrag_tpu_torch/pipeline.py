@@ -41,8 +41,10 @@ shards both BM25 routes' resident indexes and the dense index over its
 ``data`` axis (``parallel/sharded.py``); a mesh may instead be injected
 (``mesh=``), e.g. four shards on one card. Sharded routes are scored route by
 route, as in JAX: the fused dual-route scorer is single-chip. A ``model`` axis
-wider than 1 (tensor parallelism) raises ``NotImplementedError`` where a model
-is loaded.
+wider than 1 (``mesh_axis_names: [data, model]``) loads a gte-Qwen2 embedder
+named by the config tensor-parallel over it (``parallel/tp.py``), as
+``easyrag_tpu/pipeline.py:147-165`` does; the rerankers and the generator
+stay unsharded, as in JAX.
 """
 
 from __future__ import annotations
@@ -138,7 +140,7 @@ class EasyRAGPipeline:
         asks for the CPU; without a card it raises. ``mesh``
         (``parallel.mesh.Mesh``) stands in for the one ``tpu.mesh_shape``
         would build; ``tpu.shard_index`` shards the indexes over its ``data``
-        axis."""
+        axis, and an embedder loaded by name shards over its ``model`` axis."""
         if isinstance(config, dict):
             config = EasyRAGConfig.from_dict(config)
         _check_supported(config)

@@ -52,7 +52,7 @@ from easyrag_tpu_torch.retrievers import HybridRetriever
 from easyrag_tpu_torch.schema import QueryBundle
 from test_torch_decode import tiny_causal_checkpoint  # noqa: F401  (a fixture)
 from test_torch_embedder import ARCH as GTE_ARCH
-from test_torch_embedder import BatchCharTok, jax_tree
+from test_torch_embedder import BatchCharTok, jax_tree, tiny_gte_checkpoint  # noqa: F401  (a fixture)
 from test_torch_minicpm import ARCH, CharTok, tiny_params
 
 torch.set_num_threads(1)
@@ -353,7 +353,7 @@ def test_fusion_without_the_dense_route_is_refused(tmp_path, offline_counter):
                                               rerank_fusion_type=1), device="cpu")
 
 
-def test_unported_options_raise(tmp_path, offline_counter):
+def test_unported_options_raise(tmp_path, offline_counter, tiny_gte_checkpoint):  # noqa: F811
     data_path = make_corpus(tmp_path / "corpus")
     # split_type 1, HyDE, the corpus artifact and the compressor are ported:
     # each builds and answers (tests/test_torch_options.py holds them to JAX)
@@ -365,17 +365,19 @@ def test_unported_options_raise(tmp_path, offline_counter):
         out = asyncio.run(pipe.run(dict(QUERIES[0])))
         assert out["contexts"] and out["answer"] == f"answer-{len(llm.prompts)}"
     # sharded indexes are ported (tests/test_torch_sharded_pipeline.py): a
-    # config's mesh takes distinct cards, so without one it raises, and a
-    # mesh's model axis (tensor parallelism) is still refused where a model loads
+    # config's mesh takes distinct cards, so without one it raises; a mesh's
+    # model axis loads the gte embedder tensor-parallel (tests/test_torch_tp.py)
     for tpu in (dict(shard_index=True, mesh_shape=[2]), dict(mesh_shape=[1])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             EasyRAGPipeline(tconfig.EasyRAGConfig(data_path=data_path, use_reranker=0, tpu=tconfig.TPUConfig(**tpu)),
                             device="cpu")
+    from easyrag_tpu_torch.models.layers import tp_devices
     from easyrag_tpu_torch.models.registry import load_embedder
     from easyrag_tpu_torch.parallel.mesh import data_model_mesh
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        load_embedder(str(tmp_path), mesh=data_model_mesh(2, model_parallel=2, devices=["cpu"] * 2), device="cpu")
+    mesh = data_model_mesh(2, model_parallel=2, devices=["cpu"] * 2)
+    embedder = load_embedder(tiny_gte_checkpoint, mesh=mesh, device="cpu")
+    assert tp_devices(embedder.params) == mesh.model_devices() and len(embedder.params["layers"][0]["mlp"]) == 2
     # the decode pool is ported; like JAX's it needs static shapes and the
     # on-device decoder, and says so before loading a model
     for tpu in (dict(local_llm_max_new=0), dict(local_llm_max_new=4, local_llm_backend="hf")):
@@ -417,7 +419,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     from easyrag_tpu_torch.serving import api, coalesce, webui  # noqa: F401
     from easyrag_tpu_torch import automerge, compressors, native  # noqa: F401
     from easyrag_tpu_torch.index import artifact  # noqa: F401
-    from easyrag_tpu_torch.parallel import mesh as pmesh, multihost, sharded  # noqa: F401
+    from easyrag_tpu_torch.parallel import mesh as pmesh, multihost, sharded, tp  # noqa: F401
+    from easyrag_tpu_torch import dryrun
     from easyrag_tpu_torch.corpus import html_text, ocr, zedx  # noqa: F401
 
     DOCS, QUERIES = json.loads({docs!r}), json.loads({queries!r})
@@ -468,6 +471,8 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
     )
     sharded_out = [asyncio.run(sharded_pipe.run(dict(q))) for q in QUERIES]
     prepped = html_text.html_to_text("<p>扩容</p><table><tr><td>a</td></tr></table>")
+    # the multi-device dry run (tensor-parallel embedder and decode, sharded indexes)
+    dry = dryrun.dryrun_multichip(4, ["cpu"] * 4)
 
     # the non-default options: hierarchical chunks with auto-merging, HyDE,
     # the compressor, int8 heavy storage, the corpus artifact (saved, then
@@ -551,7 +556,7 @@ BLOCKED_JAX_SCRIPT = textwrap.dedent(
                       "embed": sorted(params["embed"]), "tokens": toks.tolist(), "jax_modules": loaded,
                       "rrf_nodes": [len(o["nodes"]) for o in fused], "embedded": emb.stats["batches"],
                       "options": [o["contexts"] for o in opt], "rebooted": [o["contexts"] for o in rebooted],
-                      "native_builds": native.builds}}))
+                      "native_builds": native.builds, "dryrun": dry["mesh"]}}))
     """
 )
 
@@ -577,6 +582,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert result["native_builds"] >= 2  # both routes of the options pipeline's first boot
     assert result["sharded"] and result["sharded_class"] == "ShardedResidentSparseIndex"
     assert result["prepped"] == "扩容\n\n| a |\n| --- |\n"
+    assert result["dryrun"] == {"data": 2, "model": 2}
 
 
 def _imported_modules(path):

@@ -101,7 +101,7 @@ def test_yes_logit_fallback_matches_jax(tiny_causal_checkpoint):  # noqa: F811
     close_scores(got.scorer.score_pairs(PAIRS)[0], ref.scorer.score_pairs(PAIRS)[0])
 
 
-def test_missing_path_and_mesh_raise():
+def test_missing_path_and_mesh_raise(tiny_gte_checkpoint):  # noqa: F811
     for port, jax_fn, name in ((reg.load_embedder, jreg.load_embedder, "Alibaba-NLP/gte-Qwen2-7B-instruct"),
                                (reg.load_reranker, jreg.load_reranker, "BAAI/bge-reranker-v2-minicpm-layerwise")):
         with pytest.raises(FileNotFoundError) as got:
@@ -109,9 +109,14 @@ def test_missing_path_and_mesh_raise():
         with pytest.raises(FileNotFoundError) as want:
             jax_fn(name)
         assert str(got.value) == str(want.value) and "no network egress" in str(got.value)
-    mesh = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        reg.load_embedder(".", mesh=mesh, device="cpu")
+    # a model axis of 2 loads the gte embedder tensor-parallel (it used to be refused)
+    from easyrag_tpu_torch.models.layers import tp_devices
+    from easyrag_tpu_torch.parallel.mesh import data_model_mesh
+
+    mesh = data_model_mesh(2, model_parallel=2, devices=["cpu"] * 2)
+    got = reg.load_embedder(tiny_gte_checkpoint, mesh=mesh, device="cpu")
+    assert isinstance(got, GTEEmbedder) and tp_devices(got.params) == mesh.model_devices()
+    assert got.get_text_embeddings(TEXTS).shape == (len(TEXTS), 32)
 
 
 class FakeSentenceTransformer:
