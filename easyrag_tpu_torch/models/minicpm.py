@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..devices import resolve_device
+from ..utils.events import trace
 from .layers import (
     DecoderConfig,
     DecoderLayer,
@@ -225,22 +226,27 @@ class MiniCPMLayerWiseReranker(nn.Module):
     @torch.inference_mode()
     def score_pairs(self, pairs: List[Tuple[str, str]], judge: bool = False) -> Tuple[np.ndarray, int]:
         """Score one batch: ``(scores[B], layer used)``. ``judge=True`` runs
-        the two-segment early-exit protocol."""
-        ids_np, mask_np = self.build_inputs(pairs)
-        ranges, last_idx, rope = self._prepare(mask_np)
-        hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(self.final_norm.device), self.final_norm.dtype)
+        the two-segment early-exit protocol. Two spans: ``rerank.prep`` (the
+        inputs, their ranges and tables, the upload and the embedding) and
+        ``rerank.forward`` (the layers and the scores' host read)."""
+        with trace("rerank.prep"):
+            ids_np, mask_np = self.build_inputs(pairs)
+            ranges, last_idx, rope = self._prepare(mask_np)
+            hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(self.final_norm.device),
+                           self.final_norm.dtype)
         cutoff = self.cutoff_layer
-        if judge and self.efficient_layers:
-            j = self.efficient_layers[0]
-            hidden = self._segment(hidden, ranges, rope, 0, j)
-            scores = self._layer_score(hidden, j, last_idx, scale_head_input=False)
-            if self._judge_quit(scores):
-                return scores, j
-            hidden = self._segment(hidden, ranges, rope, j, cutoff)
-            return self._layer_score(hidden, cutoff, last_idx, scale_head_input=False), cutoff
-        hidden = self._segment(hidden, ranges, rope, 0, cutoff)
-        scale = not judge and self.use_efficient == 0
-        return self._layer_score(hidden, cutoff, last_idx, scale_head_input=scale), cutoff
+        with trace("rerank.forward"):
+            if judge and self.efficient_layers:
+                j = self.efficient_layers[0]
+                hidden = self._segment(hidden, ranges, rope, 0, j)
+                scores = self._layer_score(hidden, j, last_idx, scale_head_input=False)
+                if self._judge_quit(scores):
+                    return scores, j
+                hidden = self._segment(hidden, ranges, rope, j, cutoff)
+                return self._layer_score(hidden, cutoff, last_idx, scale_head_input=False), cutoff
+            hidden = self._segment(hidden, ranges, rope, 0, cutoff)
+            scale = not judge and self.use_efficient == 0
+            return self._layer_score(hidden, cutoff, last_idx, scale_head_input=scale), cutoff
 
     def _prepare(self, mask_np: np.ndarray):
         """Key ranges, last real index and RoPE tables of a padded batch."""

@@ -402,19 +402,21 @@ class EasyRAGPipeline:
     async def run(self, query: Dict[str, Any]) -> Dict[str, Any]:
         """``{"query": ..., "document": optional dir}`` ->
         ``{"answer", "nodes", "contexts"}``. Under ``hyde`` the LLM's
-        hypothetical document is set as ``query["hyde_query"]`` first."""
-        if self.hyde:
-            with trace("hyde"):
-                hyde_bundle = await self.hyde_transform.acall(query["query"])
-            query["hyde_query"] = hyde_bundle.custom_embedding_strs[0]
-        filters, self.filter_dict = self.build_filters(query)
-        self.sparse_retriever.filter_dict = self.filter_dict
-        if self.config.rerank_fusion_type == 0:
-            return await self.generation_with_knowledge_retrieval(
-                query_str=query["query"], hyde_query=query.get("hyde_query", "")
-            )
-        self.dense_retriever.filters = filters
-        return await self.generation_with_rerank_fusion(query_str=query["query"])
+        hypothetical document is set as ``query["hyde_query"]`` first. The
+        call is one ``request`` span (a child of the caller's, if any)."""
+        with trace("request"):
+            if self.hyde:
+                with trace("hyde"):
+                    hyde_bundle = await self.hyde_transform.acall(query["query"])
+                query["hyde_query"] = hyde_bundle.custom_embedding_strs[0]
+            filters, self.filter_dict = self.build_filters(query)
+            self.sparse_retriever.filter_dict = self.filter_dict
+            if self.config.rerank_fusion_type == 0:
+                return await self.generation_with_knowledge_retrieval(
+                    query_str=query["query"], hyde_query=query.get("hyde_query", "")
+                )
+            self.dense_retriever.filters = filters
+            return await self.generation_with_rerank_fusion(query_str=query["query"])
 
     # -- batch entry points -----------------------------------------------------
 
@@ -425,15 +427,17 @@ class EasyRAGPipeline:
         batches (:meth:`_sparse_fused_batch`) and the fusion path embeds the
         queries at once and streams the dense and sparse lists
         (:meth:`_run_fusion_retrieval_batch`); anything else (a reranker,
-        HyDE, the auto-merging retriever) runs ``run`` query by query."""
-        if self.reranker is not None or self.hyde or not isinstance(self.sparse_retriever, BM25Retriever):
-            return [await self.run(dict(q)) for q in queries]
-        if self.config.rerank_fusion_type != 0:
-            return self._run_fusion_retrieval_batch(queries)
-        return [
-            {"answer": "", "nodes": fused, "contexts": [self.get_node_content(n) for n in fused]}
-            for fused in self._sparse_fused_batch(queries)
-        ]
+        HyDE, the auto-merging retriever) runs ``run`` query by query. The
+        call is one ``request`` span."""
+        with trace("request"):
+            if self.reranker is not None or self.hyde or not isinstance(self.sparse_retriever, BM25Retriever):
+                return [await self.run(dict(q)) for q in queries]
+            if self.config.rerank_fusion_type != 0:
+                return self._run_fusion_retrieval_batch(queries)
+            fused_lists = self._sparse_fused_batch(queries)
+            with trace("contexts"):
+                return [{"answer": "", "nodes": fused, "contexts": [self.get_node_content(n) for n in fused]}
+                        for fused in fused_lists]
 
     def _sparse_fused_batch(self, queries) -> List[list]:
         """Both sparse routes of every query, in 64-row batches, fused per
@@ -448,7 +452,8 @@ class EasyRAGPipeline:
                 content_lists = self.sparse_retriever.retrieve_batch(bundles, filter_dicts)
                 path_lists = (self.path_retriever.retrieve_batch(bundles) if self.path_retriever is not None
                               else [[] for _ in queries])
-        return [self._fuse_corpus_lists([c, p]) for c, p in zip(content_lists, path_lists)]
+        with trace("fusion"):
+            return [self._fuse_corpus_lists([c, p]) for c, p in zip(content_lists, path_lists)]
 
     async def run_answers_batch(self, queries: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         """Staged batch answers (``easyrag_tpu/pipeline.py:590-627``): one
@@ -457,7 +462,8 @@ class EasyRAGPipeline:
         (``gen_batch``-row decodes). Each row equals ``run``'s. It stages
         only on the default path and where ``run`` itself answers with that
         generator (or with ``re_only``), without HyDE and over the plain
-        BM25 route; otherwise it runs ``run`` query by query."""
+        BM25 route; otherwise it runs ``run`` query by query. The call is
+        one ``request`` span."""
         gen = self.local_llm
         stageable = (
             self.config.rerank_fusion_type == 0
@@ -466,9 +472,10 @@ class EasyRAGPipeline:
             and isinstance(self.sparse_retriever, BM25Retriever)
             and (self.re_only or (hasattr(gen, "generate_batch") and self._answers_via_local_llm()))
         )
-        if not stageable:
-            return [await self.run(dict(q)) for q in queries]
-        return await self._run_answers_staged(queries, self._sparse_fused_batch(queries), gen)
+        with trace("request"):
+            if not stageable:
+                return [await self.run(dict(q)) for q in queries]
+            return await self._run_answers_staged(queries, self._sparse_fused_batch(queries), gen)
 
     def _answers_via_local_llm(self) -> bool:
         """True when ``run``'s answer LLM is the local generator, directly or
@@ -574,25 +581,28 @@ class EasyRAGPipeline:
         takes the dir filter, the path route does not). The stream is prepped
         at once; if a query overflows the term budget, the rows are checked
         one by one and the overflowing ones are retrieved per route (the
-        gather path, K5)."""
+        gather path, K5). Its spans: ``retrieval_batch.prep`` (tokens, filters,
+        query terms), ``.stream`` (to its host read), ``.nodes`` and
+        ``.overflow`` (the per-route rows)."""
         sparse, path = self.sparse_retriever, self.path_retriever
-        tokens = [sparse._tokenize_query(qb.query_str) for qb in bundles]
-        dir_fs = [-1 if fd is None or fd.get("dir") is None else sparse.index.dir_vocab.get(fd["dir"], -2)
-                  for fd in filter_dicts]
-        try:
-            prepped = (*sparse._resident.query_terms_batch(tokens), *path._resident.query_terms_batch(tokens))
-            valid, overflow = list(range(len(tokens))), []
-        except ValueError:
-            valid, overflow = [], []
-            for i, toks in enumerate(tokens):
-                try:
-                    sparse._resident.query_terms(toks)
-                    path._resident.query_terms(toks)
-                    valid.append(i)
-                except ValueError:
-                    overflow.append(i)
-            kept = [tokens[i] for i in valid]
-            prepped = (*sparse._resident.query_terms_batch(kept), *path._resident.query_terms_batch(kept))
+        with trace("retrieval_batch.prep"):
+            tokens = [sparse._tokenize_query(qb.query_str) for qb in bundles]
+            dir_fs = [-1 if fd is None or fd.get("dir") is None else sparse.index.dir_vocab.get(fd["dir"], -2)
+                      for fd in filter_dicts]
+            try:
+                prepped = (*sparse._resident.query_terms_batch(tokens), *path._resident.query_terms_batch(tokens))
+                valid, overflow = list(range(len(tokens))), []
+            except ValueError:
+                valid, overflow = [], []
+                for i, toks in enumerate(tokens):
+                    try:
+                        sparse._resident.query_terms(toks)
+                        path._resident.query_terms(toks)
+                        valid.append(i)
+                    except ValueError:
+                        overflow.append(i)
+                kept = [tokens[i] for i in valid]
+                prepped = (*sparse._resident.query_terms_batch(kept), *path._resident.query_terms_batch(kept))
 
         def to_nodes(tv_row, ti_row):
             n = int(np.isfinite(tv_row).sum())  # scores descending, -inf tail
@@ -601,18 +611,22 @@ class EasyRAGPipeline:
         content_lists = [[] for _ in bundles]
         path_lists = [[] for _ in bundles]
         if valid:
-            (tv1, ti1), (tv2, ti2) = self._dual_scorer.stream_from_arrays(
-                *prepped, [dir_fs[i] for i in valid], sparse._similarity_top_k, path._similarity_top_k
-            )
-            for row, i in enumerate(valid):
-                content_lists[i] = to_nodes(tv1[row], ti1[row])
-                path_lists[i] = to_nodes(tv2[row], ti2[row])
-        saved = sparse.filter_dict
-        for i in overflow:
-            sparse.filter_dict = filter_dicts[i]
-            content_lists[i] = sparse.retrieve(bundles[i])
-            path_lists[i] = path.retrieve(bundles[i])
-        sparse.filter_dict = saved
+            with trace("retrieval_batch.stream"):
+                (tv1, ti1), (tv2, ti2) = self._dual_scorer.stream_from_arrays(
+                    *prepped, [dir_fs[i] for i in valid], sparse._similarity_top_k, path._similarity_top_k
+                )
+            with trace("retrieval_batch.nodes"):
+                for row, i in enumerate(valid):
+                    content_lists[i] = to_nodes(tv1[row], ti1[row])
+                    path_lists[i] = to_nodes(tv2[row], ti2[row])
+        if overflow:
+            with trace("retrieval_batch.overflow"):
+                saved = sparse.filter_dict
+                for i in overflow:
+                    sparse.filter_dict = filter_dicts[i]
+                    content_lists[i] = sparse.retrieve(bundles[i])
+                    path_lists[i] = path.retrieve(bundles[i])
+                sparse.filter_dict = saved
         return content_lists, path_lists
 
     def _dual_retrieve(self, query_bundle: QueryBundle):

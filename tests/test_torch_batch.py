@@ -26,6 +26,7 @@ from easyrag_tpu.schema import QueryBundle as JaxQueryBundle
 from easyrag_tpu_torch.pipeline import EasyRAGPipeline
 from easyrag_tpu_torch.retrievers import HybridRetriever
 from easyrag_tpu_torch.schema import NodeWithScore, QueryBundle, TextNode
+from easyrag_tpu_torch.utils import events
 from test_pipeline import FakeEmbedder
 from test_torch_decode import tiny_causal_checkpoint  # noqa: F401  (a fixture)
 from test_torch_pipeline import QUERIES, configs, make_corpus, offline_counter  # noqa: F401  (a fixture)
@@ -71,6 +72,38 @@ def test_retrieval_batch_matches_per_query_and_jax(tmp_path, offline_counter, ro
         assert b["contexts"] == w["contexts"]
         assert [n.node.idx for n in b["nodes"]] == [n.node.idx for n in w["nodes"]]
         np.testing.assert_allclose([n.score for n in b["nodes"]], [n.score for n in w["nodes"]], rtol=1e-6)
+
+
+def test_retrieval_batch_spans(tmp_path, offline_counter):  # noqa: F811
+    """One call with the overflowing question: one ``request``; one
+    ``retrieval_batch`` whose children are exactly its four stages; then
+    ``fusion`` and ``contexts``; every span of the one request."""
+    _, got = pipelines(tmp_path)
+    spans = []
+    off = events.on(lambda kind, p: spans.append(p) if kind == "timing" and p["name"] != "gc" else None)
+    try:
+        batch = asyncio.run(got.run_retrieval_batch([dict(q) for q in BASE]))
+    finally:
+        off()
+    s = {}
+    for p in spans:
+        s.setdefault(p["name"], []).append(p)
+    assert sorted(s) == sorted(["request", "retrieval_batch", "retrieval_batch.prep", "retrieval_batch.stream",
+                                "retrieval_batch.nodes", "retrieval_batch.overflow", "fusion", "contexts"])
+    assert all(len(v) == 1 for v in s.values())
+    s = {k: v[0] for k, v in s.items()}
+    request, rb = s["request"], s["retrieval_batch"]
+    assert request["parent"] is None and all(p["request"] == request["id"] for p in s.values())
+    kids = [p["name"] for p in spans if p["parent"] == rb["id"]]
+    assert kids == ["retrieval_batch.prep", "retrieval_batch.stream", "retrieval_batch.nodes",
+                    "retrieval_batch.overflow"]
+    for name in kids:
+        assert rb["start"] <= s[name]["start"] <= s[name]["end"] <= rb["end"]
+    for name in ("retrieval_batch", "fusion", "contexts"):
+        assert s[name]["parent"] == request["id"]
+    assert rb["end"] <= s["fusion"]["start"] <= s["fusion"]["end"] <= s["contexts"]["start"]
+    assert s["contexts"]["end"] <= request["end"]
+    assert rows(batch) == rows([asyncio.run(got.run(dict(q))) for q in BASE])
 
 
 def test_retrieve_batch_matches_jax(tmp_path, offline_counter):  # noqa: F811
