@@ -8,8 +8,9 @@ Phases (each one raises on failure; nothing falls back to the CPU):
 0. environment: Python/torch/CUDA versions, the card's ``nvidia-smi`` name
    and power limit, ``nvcc``, and which of yaml/jieba/transformers/bs4
    import;
-1. build the six CUDA kernels from ``easyrag_tpu_torch/csrc`` (the sources
-   and their shared header ``attention_sm90.cuh``), one ``nvcc`` per source,
+1. build the seven CUDA kernel libraries of ``_build.KERNELS`` from
+   ``easyrag_tpu_torch/csrc`` (the sources and their shared header
+   ``attention_sm90.cuh``), one ``nvcc`` per source,
    all started together; print each one's registers and spills;
 2. each kernel against its plain PyTorch version on the card: K1
    (``flash64_attention``) at B=4, S=1064, H=36 with and without RoPE on
@@ -38,7 +39,14 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    ``-inf`` row and tied chunks, equal to its plain version bit for bit, the
    pruned top-6/192/288 through it equal to the whole row sorted; device
    times from CUDA graphs cycling through copies of the input 4x the L2's
-   size, beside ``amax`` over contiguous 8;
+   size, beside ``amax`` over contiguous 8; MiniCPM's fused chain
+   (``ops/fused_norm.py``: ``residual_rms_norm`` with and without the
+   residual, ``residual_add``, ``silu_mul``) against its plain versions on
+   the same card tensors at the rerank batch's shapes ([32 x 1216, 2304],
+   [32 x 1216, 5760]) and at 7 rows: the new residual and the activation
+   equal bit for bit, the normalised rows within one bf16 step; each timed
+   (CUDA events around 20 calls, every input past the L2's size) beside
+   its plain version, ``torch.compile`` of the plain version and the bound;
 3. the port's ``EasyRAGPipeline.run`` on ``configs/easyrag.yaml`` over a
    seeded synthetic corpus of 20,000 chunks, with the full-width
    bge-reranker-v2-minicpm-layerwise (hidden 2304, 36x64 heads, 40 layers,
@@ -47,7 +55,9 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    client. Three queries: a short one, one with a ``document`` dir filter,
    one with more than 64 distinct terms. Kernel launch counts are reset just
    before the three runs and read just after; K1 and K6 (the content top-192
-   and the path top-6) must run on every query and K5 on the long one. The content route's top-192 must equal the
+   and the path top-6) must run on every query and K5 on the long one; the
+   fused chain must report one ``fused_chain`` event a rerank batch, four
+   kernel launches a layer and no eager step. The content route's top-192 must equal the
    float64 host ranking (ties aside) and the reranker must agree with an f32
    CPU run of its first 8 layers on a small input. The long query's overflow
    scatter, run twice with ``use_pallas`` off, must go through K5 and give
@@ -76,7 +86,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    through ``EasyRAGPipeline.run`` with this reranker behind ``LLMRerank``
    (cutoff 28, compression at layer 24 by 2, 32-pair batches). Kernel launch
    counts are reset just before the three runs and read just after; K4 must
-   run 28 times per 32-pair batch. Then a 2-layer cut (compression at 1,
+   run 28 times per 32-pair batch, MiniCPM's fused chain not at all. Then a 2-layer cut (compression at 1,
    cutoff 2) on the card against the CPU in f32 on eight pairs drawn from the
    seed, each score within a tenth of the score's scale, and the peak
    device memory;
@@ -109,8 +119,8 @@ Phases (each one raises on failure; nothing falls back to the CPU):
    (``use_efficient`` 3, keep 32, judge layer 12, ``cascade_carry``), and
    answering with phase 5's int4 generator, which the pipeline wraps in its
    own ``BatchingLocalLLM``. Launch counts are reset just before the three
-   queries and read just after: K1, K2 and K3 must run on every query, K5 on
-   the long one; each query's retrieval, stage-1 and stage-2 rerank and
+   queries and read just after: K1, K2, K3 and the fused chain (four
+   launches a w8a8 layer) must run on every query, K5 on the long one; each query's retrieval, stage-1 and stage-2 rerank and
    generation times. Then the checks: the carried stage 2 against the
    re-score path on the same survivors (within ``CARRY_TOL`` of the scores'
    scale, the same top 6); w8a8 against the bf16 scorer on one 32-pair batch
@@ -236,6 +246,7 @@ Every kernel's entry in the JSON line carries its bound at the timed shape
 bytes, each input read once and each output written once, over 3.35 TB/s)
 and, where one PyTorch call computes the same function, that call's time
 (``scaled_dot_product_attention`` for K1 and K3, ``index_add_`` for K5,
+``torch.compile`` of the plain version for the fused chain,
 ``flex_attention`` compiled with the softcap as its ``score_mod`` for K4,
 ``torch.ops.aten._weight_int4pack_mm`` for K2, on weights repacked into its
 layout with the per-channel scale as every group's bf16 scale, ``amax`` for
@@ -244,10 +255,13 @@ K6).
 Prints its total seconds, one JSON line of kernel results (K1's and K5's
 times at the pipeline's shapes, K2's gateup's at R=1, K3's at both call
 sites: the prefill's at B=1, S=7680 and the embedder's at the boot's first
-index-build batch, K4's at B=32, S=1152, K6's at B=64, N=20000, and K5's
-second entry at the resident tail's shape; launches from phases 3, 5, 6, 7
-and 9, each kernel's own main path, and the K5 tail's from phase 11's
-stream; phase 10's served requests print their own), before it a line of
+index-build batch, K4's at B=32, S=1152, K6's at B=64, N=20000, K5's
+second entry at the resident tail's shape, and the fused chain's three
+kernels at the rerank batch's shape, the norm at the mid-layer add + norm;
+launches from phases 3, 5, 6, 7 and 9, each kernel's own main path, the K5
+tail's from phase 11's stream, and the fused chain's from phase 3, split two
+norms, one add and one SiLU * up a layer; phase 10's served requests print
+their own), before it a line of
 K3's per-shard times at 28/4, 14/2 and 7/1 heads (phase 13), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -374,6 +388,8 @@ OPT_GEN_NEW = 32
 TP_MAX_LENGTH, TP_CHUNKS, TP_DOCS = 512, 32, 160
 TP_PROMPTS, TP_BUCKET, TP_NEW, TP_SPEC = (200, 120), 256, 16, 7
 TP_COSINE = 0.999  # bf16 TP embedder against the unsharded one, per row
+# phase 2's fused chain: the rows of a query_c1 rerank batch (32 pairs of 1,216 tokens)
+FUSED_ROWS = 32 * 1216
 # the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 tensor cores, f32
 # outside them, HBM bandwidth
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -427,6 +443,26 @@ def cuda_ms(torch, fn, reps=10, warmup=2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def run_ms(torch, fn, reps=20, rounds=5) -> float:
+    """Milliseconds per call of ``fn``, the median over ``rounds`` of CUDA
+    events around ``reps`` calls in a row: the host runs ahead of the card,
+    so kernels of a tenth of a millisecond are timed without the launch gap
+    a per-call event pair counts, where a CUDA graph would hold every call's
+    outputs at once."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -840,6 +876,75 @@ def phase_new_kernels(torch, np, k2, k3):
     return errs, times, extra
 
 
+def bf16_steps(torch, a, b):
+    """bf16 steps between ``a`` and ``b`` (the distance of their bit
+    patterns for values of one sign; 65536 across signs)."""
+    ia, ib = a.view(torch.int16).int(), b.view(torch.int16).int()
+    return torch.where((ia < 0) == (ib < 0), (ia - ib).abs(), torch.where(a == b, 0, 1 << 16))
+
+
+def phase_fused_chain(torch):
+    """MiniCPM's fused chain (``ops/fused_norm.py``) against its plain
+    versions on the same card tensors, at the rerank batch's shapes
+    ([32 x 1216, 2304] and [32 x 1216, 5760]) and at 7 rows: the new
+    residual and the activation equal bit for bit, the normalised rows within
+    one bf16 step. Each kernel timed beside its plain version (the eager ops
+    the layer ran before), ``torch.compile`` of the plain version and the
+    bound. Returns ``{kernel: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, compile_ms)}``, the norm's at the mid-layer add + norm."""
+    say("== phase 2 (fused chain): MiniCPM's norm, residual add and SiLU * up vs plain versions")
+    from easyrag_tpu_torch.models.layers import DecoderConfig
+    from easyrag_tpu_torch.ops import fused_norm as fn
+
+    cfg = DecoderConfig(**RERANKER)
+    D, I, eps, r = cfg.hidden_size, cfg.intermediate_size, cfg.rms_norm_eps, cfg.residual_scale
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(torch.bfloat16)
+    results = {}
+    for T in (FUSED_ROWS, 7):
+        x, h, gate, up = randn(T, D), randn(T, D, scale=4.0), randn(T, I, scale=3.0), randn(T, I)
+        n_el = T * D
+        passes = {  # name: (kernel, plain, bytes read once and written once)
+            "input norm": (lambda: fn.residual_rms_norm_kernel(x, w, eps), lambda: fn.residual_rms_norm_plain(x, w, eps),
+                           4 * n_el + 2 * D),
+            "residual_rms_norm": (lambda: fn.residual_rms_norm_kernel(x, w, eps, h, r),
+                                  lambda: fn.residual_rms_norm_plain(x, w, eps, h, r), 8 * n_el + 2 * D),
+            "residual_add": (lambda: fn.residual_add_kernel(x, h, r), lambda: fn.residual_add_plain(x, h, r), 6 * n_el),
+            "silu_mul": (lambda: fn.silu_mul_kernel(gate, up), lambda: fn.silu_mul_plain(gate, up), 6 * T * I),
+        }
+        for name, (kern, plain, nbytes) in passes.items():
+            n0 = fn.launches
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            check(fn.launches == n0 + 1, f"{name} at {T} rows: the wrapper did not launch its kernel once")
+            if name in ("input norm", "residual_rms_norm"):
+                steps = int(bf16_steps(torch, got[1], ref[1]).max())
+                err = float((got[1].float() - ref[1].float()).abs().max())
+                check(torch.equal(got[0], ref[0]), f"{name} at {T} rows: the new residual differs from the plain one")
+                check(steps <= 1, f"{name} at {T} rows: the normalised rows are {steps} bf16 steps from the plain ones")
+                what = f"residual equal bit for bit, normalised rows within {steps} bf16 step (max_abs_err {err:.3e})"
+            else:
+                err, what = 0.0, "equal bit for bit"
+                check(torch.equal(got, ref), f"{name} at {T} rows: differs from the plain version")
+            if T != FUSED_ROWS:
+                say(f"{name} at [{T}, {I if name == 'silu_mul' else D}]: {what}")
+                continue
+            ms, plain_ms = run_ms(torch, kern), run_ms(torch, plain)
+            compile_ms = run_ms(torch, torch.compile(plain))
+            b = bound(0, nbytes)
+            results[name] = (err, ms, plain_ms, *b, compile_ms)
+            say(f"{name} at [{T}, {I if name == 'silu_mul' else D}]: {what}; kernel {ms:.4f} ms "
+                f"({nbytes / ms / 1e6:.0f} GB/s, {b[0] / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+                f"torch.compile {compile_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+        del x, h, gate, up, passes
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(torch, f64, k5):
     say("== phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -994,6 +1099,7 @@ def phase_pipeline(torch, np, f64, k5, k6, tmp):
     from easyrag_tpu_torch.corpus.tokenizer import approx_token_count
     from easyrag_tpu_torch.models.layers import DecoderConfig
     from easyrag_tpu_torch.models.minicpm import MiniCPMLayerWiseReranker
+    from easyrag_tpu_torch.ops import fused_norm as fn
     from easyrag_tpu_torch.pipeline import EasyRAGPipeline
     from easyrag_tpu_torch.rerankers import LLMRerank
     from easyrag_tpu_torch.schema import QueryBundle
@@ -1037,13 +1143,15 @@ def phase_pipeline(torch, np, f64, k5, k6, tmp):
     asyncio.run(pipeline.run(dict(queries[0][1])))  # warm-up, not counted
     torch.cuda.synchronize()
 
-    candidates, stages, batches = [], [], []
+    candidates, stages, batches, chains = [], [], [], []
 
     def listen(kind, payload):
         if kind == "reranking" and "candidates" in payload:
             candidates.append(payload["candidates"])
         elif kind == "reranking" and "batch" in payload:
             batches[-1].append(payload["pairs"])
+        elif kind == "fused_chain":
+            chains[-1].append(payload)
         elif kind == "timing":
             stages.append((payload["name"], payload["seconds"] * 1e3))
 
@@ -1052,8 +1160,10 @@ def phase_pipeline(torch, np, f64, k5, k6, tmp):
     f64.launches = 0
     k5.launches = 0
     k6.launches = 0
+    fn.launches = 0
     for name, q, _ in queries:
         batches.append([])
+        chains.append([])
         k1_0, k5_0, k6_0 = f64.launches, k5.launches, k6.launches
         t = time.perf_counter()
         out = asyncio.run(pipeline.run(dict(q)))
@@ -1061,8 +1171,19 @@ def phase_pipeline(torch, np, f64, k5, k6, tmp):
         ms = (time.perf_counter() - t) * 1e3
         results.append((name, q, out, ms, f64.launches - k1_0, k5.launches - k5_0, k6.launches - k6_0, dict(stages)))
         stages.clear()
-    launches = {"K1": f64.launches, "K5": k5.launches, "K6": k6.launches}
+    launches = {"K1": f64.launches, "K5": k5.launches, "K6": k6.launches, "FN": fn.launches}
     unsubscribe()
+
+    # the fused chain: one event a rerank batch, four launches a layer
+    # (the input norm, the add + norm, the layer-end add, SiLU * up), no
+    # eager step on the card
+    for (name, *_), sizes, evs in zip(results, batches, chains, strict=True):
+        check(len(evs) == len(sizes) and all(e == {"kernel": 4 * scorer.cutoff_layer, "plain": 0} for e in evs),
+              f"query {name!r}: fused_chain events {evs} for {len(sizes)} rerank batches")
+    check(sum(e["kernel"] for evs in chains for e in evs) == fn.launches,
+          f"the fused chain launched {fn.launches} kernels outside its events")
+    say(f"fused chain: {sum(map(len, chains))} rerank batches, {fn.launches} launches "
+        f"({4 * scorer.cutoff_layer} a batch), no eager step")
 
     for (name, q, out, ms, dk1, dk5, dk6, st), n_cand, sizes in zip(results, candidates, batches, strict=True):
         n_terms = len(set(pipeline.sparse_retriever._tokenize_query(q["query"])))
@@ -1570,6 +1691,7 @@ def phase_gemma(torch, np, pipeline, queries, mods):
         check(all(np.isfinite(n.score) for n in out["nodes"]), f"query {name!r}: non-finite rerank score")
         check(out["answer"] == "无法确定", f"query {name!r}: unexpected answer")
     check(launches["K1"] == 0, "K1 ran with the Gemma reranker")
+    check(launches["FN"] == 0, "MiniCPM's fused chain ran with the Gemma reranker")
     say(f"launches over the three queries: {launches}")
 
     # pairs drawn from the seed: the two short queries against random nodes
@@ -2411,6 +2533,7 @@ def phase_flagship(torch, np, tmp, scorer16, generator, queries, mods):
             f"{sc['stage 2']:.1f} ms; K1 {dl['K1']}, K2 {dl['K2']}, K3 {dl['K3']}, K5 {dl['K5']} launches; "
             f"top-6 {[n.node.idx for n in out['nodes']]}")
         check(dl["K1"] > 0 and dl["K2"] > 0 and dl["K3"] > 0, f"query {name!r}: K1, K2 or K3 did not run")
+        check(dl["FN"] > 0 and dl["FN"] % 4 == 0, f"query {name!r}: the w8a8 layers' fused chain launched {dl['FN']}")
         check(len(out["nodes"]) == cfg.r_topk and all(np.isfinite(n.score) for n in out["nodes"]),
               f"query {name!r}: wrong rerank result")
         check(isinstance(out["answer"], str) and len(out["answer"]) > 0, f"query {name!r}: empty answer")
@@ -3810,6 +3933,7 @@ def main() -> int:
     from easyrag_tpu_torch.ops import chunkmax as k6
     from easyrag_tpu_torch.ops import flash_attention as k3
     from easyrag_tpu_torch.ops import flash_softcap as k4
+    from easyrag_tpu_torch.ops import fused_norm as fn
     from easyrag_tpu_torch.ops import int4_matvec as k2
 
     t_start = time.perf_counter()
@@ -3826,6 +3950,7 @@ def main() -> int:
         errs = phase_kernels(torch, f64, k5)
         k6_times = phase_chunkmax(torch, k6)
         new_errs, new_times, extra = phase_new_kernels(torch, np, k2, k3)
+        fused_times = phase_fused_chain(torch)
         lap("phases 0-2")
         with tempfile.TemporaryDirectory(prefix="easyrag_smoke_") as tmp:
             pipeline, minicpm, queries, launches, mask, P, contexts3 = phase_pipeline(torch, np, f64, k5, k6, tmp)
@@ -3833,7 +3958,7 @@ def main() -> int:
             lap("phases 3-4")
             gen_launches, _, generator = phase_generator(torch, np, pipeline, queries, f64, k2, k3, k5)
             lap("phase 5")
-            mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6}
+            mods = {"K1": f64, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "FN": fn}
             gemma_launches, k4_err, k4_times, _ = phase_gemma(torch, np, pipeline, queries, mods)
             lap("phase 6")
             dense_launches, k3e_err, k3e_times, k3e_main = phase_dense(torch, np, tmp, pipeline, minicpm, queries, mods)
@@ -3887,6 +4012,14 @@ def main() -> int:
               *k6_times[(64, 20_000)]),
         entry("bm25_scores", "bm25_scatter.cu", "easyrag_tpu/ops/bm25_resident.py:141", tail_launches,
               tail_times[2], tail_times[0], tail_times[1], *tail_times[3:]),
+        # phase 3's launches of the fused chain, split as a layer makes them:
+        # two norms, one layer-end add, one SiLU * up
+        entry("residual_rms_norm", "fused_norm.cu", "easyrag_tpu/models/layers.py:75", launches["FN"] // 2,
+              *fused_times["residual_rms_norm"]),
+        entry("residual_add", "fused_norm.cu", "easyrag_tpu/models/layers.py:412", launches["FN"] // 4,
+              *fused_times["residual_add"]),
+        entry("silu_mul", "fused_norm.cu", "easyrag_tpu/models/layers.py:386", launches["FN"] // 4,
+              *fused_times["silu_mul"]),
     ]
     print("K3 per shard (gte-Qwen2-7B, B=32, S=512; heads/KV heads: ms, plain_ms, bound_ms, bound_by, sdpa_ms): "
           + json.dumps(k3_shard_times))

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
 )
 
 #: every kernel library of ``csrc/`` on a path of the port (the probes aside)
-KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention", "flash_softcap", "chunkmax")
+KERNELS = ("flash64", "bm25_scatter", "int4_matvec", "flash_attention", "flash_softcap", "chunkmax", "fused_norm")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -47,6 +47,7 @@ from ..ops import int4_matvec
 from ..ops.flash64 import apply_rope, flash64_attention, masked_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_softcap import flash_softcap_attention
+from ..ops.fused_norm import residual_add, residual_rms_norm, silu_mul
 from .quant import quantize_linear_int4, quantize_linear_int8, unpack_int4
 
 
@@ -286,8 +287,11 @@ class DecoderLayer(nn.Module):
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
         a8 = self.cfg.act_quant
         gate = linear(x, self.gate, a8)
-        act = F.gelu(gate, approximate="tanh") if self.cfg.gemma else F.silu(gate)
-        return linear(act * linear(x, self.up, a8), self.down, a8)
+        if self.cfg.gemma:
+            act = F.gelu(gate, approximate="tanh") * linear(x, self.up, a8)
+        else:
+            act = silu_mul(gate, linear(x, self.up, a8))
+        return linear(act, self.down, a8)
 
     def forward(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
         eps = self.cfg.rms_norm_eps
@@ -296,11 +300,13 @@ class DecoderLayer(nn.Module):
             x = x + rms_norm(h, self.post_attn_norm, eps, True)
             h = self.mlp(rms_norm(x, self.pre_mlp_norm, eps, True))
             return x + rms_norm(h, self.post_mlp_norm, eps, True)
+        # MiniCPM: the norms and residual adds through ops/fused_norm.py,
+        # which takes its kernels on the card (the eager ops on the CPU)
         r = self.cfg.residual_scale
-        h = self.attention(rms_norm(x, self.input_norm, eps), kv_start, kv_end, cos, sin)
-        x = x + h * r
-        h = self.mlp(rms_norm(x, self.post_norm, eps))
-        return x + h * r
+        x, normed = residual_rms_norm(x, self.input_norm, eps)
+        h = self.attention(normed, kv_start, kv_end, cos, sin)
+        x, normed = residual_rms_norm(x, self.post_norm, eps, h, r)
+        return residual_add(x, self.mlp(normed), r)
 
 
 # easyrag_tpu/ops/int4_matvec.py's shape gate (its VMEM budget and block

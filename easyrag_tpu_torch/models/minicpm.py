@@ -26,6 +26,7 @@ or a checkpoint directory (:meth:`~MiniCPMLayerWiseReranker.from_pretrained`);
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -34,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..devices import resolve_device
-from ..utils.events import trace
+from ..ops import fused_norm
+from ..utils.events import emit, trace
 from .layers import (
     DecoderConfig,
     DecoderLayer,
@@ -45,6 +47,21 @@ from .layers import (
     rms_norm,
     rope_tables,
 )
+
+
+@contextlib.contextmanager
+def counted_chain():
+    """Emit one ``fused_chain`` event for the block: ``kernel``, the
+    launches of the decoder layers' norm, residual and SiLU * up kernels
+    (``ops/fused_norm.py``), and ``plain``, the calls of the same steps that
+    took the eager ops. The counts are process-wide: a block counts whatever
+    ran while it was open."""
+    kernel, plain = fused_norm.launches, fused_norm.plain_calls
+    try:
+        yield
+    finally:
+        emit("fused_chain", {"kernel": fused_norm.launches - kernel, "plain": fused_norm.plain_calls - plain})
+
 
 PROMPT = (
     "Given a query A and a passage B, determine whether the passage "
@@ -228,14 +245,15 @@ class MiniCPMLayerWiseReranker(nn.Module):
         """Score one batch: ``(scores[B], layer used)``. ``judge=True`` runs
         the two-segment early-exit protocol. Two spans: ``rerank.prep`` (the
         inputs, their ranges and tables, the upload and the embedding) and
-        ``rerank.forward`` (the layers and the scores' host read)."""
+        ``rerank.forward`` (the layers and the scores' host read), and one
+        ``fused_chain`` event (:func:`counted_chain`)."""
         with trace("rerank.prep"):
             ids_np, mask_np = self.build_inputs(pairs)
             ranges, last_idx, rope = self._prepare(mask_np)
             hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(self.final_norm.device),
                            self.final_norm.dtype)
         cutoff = self.cutoff_layer
-        with trace("rerank.forward"):
+        with trace("rerank.forward"), counted_chain():
             if judge and self.efficient_layers:
                 j = self.efficient_layers[0]
                 hidden = self._segment(hidden, ranges, rope, 0, j)
@@ -265,7 +283,8 @@ class MiniCPMLayerWiseReranker(nn.Module):
         ids_np, mask_np = self.build_inputs(pairs)
         ranges, last_idx, rope = self._prepare(mask_np)
         hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(self.final_norm.device), self.final_norm.dtype)
-        hidden = self._segment(hidden, ranges, rope, 0, self.cutoff_layer)
+        with counted_chain():
+            hidden = self._segment(hidden, ranges, rope, 0, self.cutoff_layer)
         scores = self._layer_score(hidden, self.cutoff_layer, last_idx, scale_head_input=self.use_efficient == 0)
         return scores, {"hidden": hidden, "mask": mask_np}
 
@@ -287,6 +306,7 @@ class MiniCPMLayerWiseReranker(nn.Module):
             self.padding_side != "right",
         )
         ranges, last_idx, rope = self._prepare(np.asarray(masks_rows))
-        hidden = self._segment(hidden, ranges, rope, from_layer, self.cutoff_layer)
+        with counted_chain():
+            hidden = self._segment(hidden, ranges, rope, from_layer, self.cutoff_layer)
         return self._layer_score(hidden, self.cutoff_layer, last_idx, scale_head_input=self.use_efficient == 0)
 

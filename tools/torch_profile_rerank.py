@@ -19,8 +19,9 @@ as ``configs/four_tenant.yaml``'s ``tpu.reranker_quant`` asks.
 Prints the wall time per batch, the device's busy and idle shares of the
 profiled batch, the device time by kind (the attention kernel, the GEMMs:
 cuBLAS in bf16, ``torch._int_mm`` under w8a8; under w8a8 the per-token
-quantization passes and the rescales of the s32 products; the rest, the
-elementwise chain) and the kernels that take the most time.
+quantization passes and the rescales of the s32 products; MiniCPM's fused
+norms, residual adds and SiLU * up; the rest, the eager elementwise ops)
+and the kernels that take the most time.
 
 Run on a machine with one CUDA card:
     python tools/torch_profile_rerank.py [--model gemma|minicpm] [--quant w8a8] [--batches 3] [--batch 32]
@@ -48,6 +49,8 @@ from easyrag_tpu_torch.ops import flash64 as k1  # noqa: E402
 from easyrag_tpu_torch.ops import flash_softcap as k4  # noqa: E402
 
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
+# the MiniCPM layer's norms, residual adds and SiLU * up (csrc/fused_norm.cu)
+FUSED_MARKS = ("residual_rms_norm_kernel", "pair_kernel")
 # the w8a8 passes, profiled as named ranges: range name -> the function in models/layers.py
 LABELS = {"a8 quantization": "quantize_tokens", "a8 rescale": "rescale_s32"}
 
@@ -60,6 +63,8 @@ def kind(name: str) -> str:
         return "K1"
     if any(m in low for m in GEMM_MARKS):
         return "GEMM"
+    if any(m in low for m in FUSED_MARKS):
+        return "fused chain"
     return "other"
 
 
@@ -141,7 +146,7 @@ def main() -> int:
         scorer.score_pairs(pairs)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_kind = {attn: 0.0, "GEMM": 0.0, "other": 0.0}
+    by_kind = {attn: 0.0, "GEMM": 0.0, "fused chain": 0.0, "other": 0.0}
     kernels, ranges = [], {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
