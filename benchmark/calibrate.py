@@ -7,11 +7,11 @@ For each seed, in one process: one run of the cell with a short window at
 its own load (``cell.execute``), then the numbers the check compares for the
 program, and, on the first ``--control`` seeds, for the control: the
 reference one precision below the configuration's standing in the
-program's place on the same questions and candidates (``cell.check`` with
-``control``). ``--override`` runs the program with its own lower-precision
-path switched on instead (then its numbers are a control's). Prints one JSON
-line per seed and, last, the largest reading of the program and the
-smallest of the control for each number.
+program's place on the same questions and candidates (the configuration's
+system module's ``check`` with ``control``). ``--override`` runs the program
+with its own lower-precision path switched on instead (then its numbers are
+a control's). Prints one JSON line per seed and, last, the largest reading
+of the program and the smallest of the control for each number.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def main() -> int:
                     help="JSON merged into the traffic's overrides, e.g. the program's own lower-precision path")
     args = ap.parse_args()
     cache_env()
-    from benchmark.harness.cell import check, execute, load_cell
+    from benchmark.harness.cell import execute, load_cell
 
     import torch
 
@@ -49,6 +49,7 @@ def main() -> int:
     print(f"card: {card_line()}", flush=True)
     log = lambda *a: print(*a, file=sys.stderr, flush=True)  # noqa: E731
     cell = load_cell(args.workload)
+    check = cell.system.check
     for key, value in (json.loads(args.override) if args.override else {}).items():
         over = cell.traffic.setdefault("overrides", {})
         if key == "tpu":

@@ -1,12 +1,12 @@
-"""Closed-loop clients that drive the pipeline's entries over the window.
+"""Closed-loop clients that drive a system's entry over the window.
 
-A traffic file names its ``entry``: ``run`` sends one question per request
-to ``EasyRAGPipeline.run``; ``retrieval_batch`` sends ``batch`` questions per
-request to ``run_retrieval_batch``. ``clients`` clients each send their next
-request when the last one returns; they take the questions of the cycle in
-turn and wrap around. Clients stop sending when the window's seconds are up;
-the window closes when the last request in flight returns, so every request
-sent in it counts, with all its time.
+A traffic file names its ``entry``, one of the system module's ``entries``:
+an async call ``(system, questions)`` that sends a request of ``batch``
+questions and returns one output per question. ``clients`` clients each
+send their next request when the last one returns; they take the questions
+of the cycle in turn and wrap around. Clients stop sending when the
+window's seconds are up; the window closes when the last request in flight
+returns, so every request sent in it counts, with all its time.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ class Request:
     questions: List[Dict[str, Any]]
     ok: bool
     error: str = ""
-    output: Optional[List[Any]] = None  # kept outputs: per question, [(node idx, score)]
+    output: Optional[List[Any]] = None  # kept outputs: the entry's, one per question
 
 
 @dataclass
@@ -41,8 +41,9 @@ class Window:
 
 
 class ClosedLoop:
-    def __init__(self, pipeline, questions: List[Dict[str, Any]], traffic: Dict[str, Any], keep) -> None:
-        self.pipeline = pipeline
+    def __init__(self, system, entry, questions: List[Dict[str, Any]], traffic: Dict[str, Any], keep) -> None:
+        self.system = system
+        self.entry = entry  # the system module's entry that the traffic names
         self.questions = questions
         self.traffic = traffic
         self.batch = traffic.get("batch", 1)
@@ -56,11 +57,7 @@ class ClosedLoop:
         return qs
 
     async def _call(self, qs):
-        if self.traffic["entry"] == "run":
-            return [await self.pipeline.run(dict(qs[0]))]
-        if self.traffic["entry"] == "retrieval_batch":
-            return await self.pipeline.run_retrieval_batch([dict(q) for q in qs])
-        raise ValueError(f"unknown entry {self.traffic['entry']!r}")
+        return await self.entry(self.system, qs)
 
     def warm(self) -> None:
         """One request of each kind of question the cycle holds (one request
@@ -92,7 +89,7 @@ class ClosedLoop:
                     out = await self._call(qs)
                     req.ok = True
                     if self.keep(n):
-                        req.output = [[(nw.node.idx, nw.score) for nw in res["nodes"]] for res in out]
+                        req.output = out
                 except Exception as e:  # noqa: BLE001 - a failed request is counted, not fatal
                     req.error = f"{type(e).__name__}: {e}"
                 req.end = time.perf_counter()

@@ -56,12 +56,14 @@ def k6_launch(rows: int, cols: int) -> Tuple[float, float]:
     return float(rows * cols), rows * cols * 4.0 + rows * (cols // 8) * 4.0
 
 
-
 def rerank_flops(rec) -> float:
     """Useful forward FLOPs of the window's rerank batches: each batch's
-    real pairs (the tail's padding duplicates left out), their real tokens,
-    through the layers the batch ran. Needs the traced run's batch shapes."""
-    if not rec.batches or len(rec.batches) != len(rec.rerank_batches):
+    real pairs (the program's ``reranking`` events; the tail's padding
+    duplicates left out), their real tokens, through the layers the batch
+    ran. Needs the traced run's batch shapes (``extra["batches"]``)."""
+    batches = rec.extra.get("batches")
+    pairs = [p["pairs"] for kind, p in rec.events if kind == "reranking" and "pairs" in p]
+    if not batches or len(batches) != len(pairs):
         return 0.0
     return sum(decoder_flops(rec.config, lengths[:n], layers)
-               for (_, _, lengths, layers), n in zip(rec.batches, rec.rerank_batches))
+               for (_, _, lengths, layers), n in zip(batches, pairs))

@@ -8,8 +8,9 @@ from benchmark.harness import flops
 
 def read(rec):
     secs = rec.trace.seconds("flash64_kernel", "rope_k_kernel")
-    if not secs or not rec.batches:
+    batches = rec.extra.get("batches")
+    if not secs or not batches:
         return None
     heads = rec.config["num_attention_heads"]
-    bound = sum(flops.bound_s(*flops.k1_launch(lengths, S, heads)) * layers for _, S, lengths, layers in rec.batches)
+    bound = sum(flops.bound_s(*flops.k1_launch(lengths, S, heads)) * layers for _, S, lengths, layers in batches)
     return 100.0 * bound / secs

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from benchmark.harness import judge
-from benchmark.harness.cell import check, execute, run_cell
+from benchmark.harness.cell import execute, run_cell
 from benchmark.run import finite, result_line
 from benchmark.tests.conftest import BATCH, QUERY, SEED
 
@@ -48,7 +48,7 @@ def test_result_line_keys(workload, tiny_cell):
 def test_control_is_not_correct(workload, tiny_cell):
     cell = tiny_cell(workload)
     oc = execute(cell, SEED, 2.0, False, "cpu", log=quiet)
-    ok, checks = judge.verdict(check(cell, oc, SEED, "cpu", quiet, control=True), cell.config["limits"])
+    ok, checks = judge.verdict(cell.system.check(cell, oc, SEED, "cpu", quiet, control=True), cell.config["limits"])
     assert not ok, checks
 
 

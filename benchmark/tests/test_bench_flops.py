@@ -24,3 +24,17 @@ def test_kernel_counts():
     assert math.isclose(flops.bound_s(989e12, 0), 1.0)
     assert math.isclose(flops.bound_s(0, 3.35e12), 1.0)
     assert flops.causal_pairs(4) == 10
+
+
+def test_rerank_flops_from_events_and_shapes():
+    """The reranked pairs come from the program's ``reranking`` events, the
+    shapes from the system's readings; the tail's padding rows are left out,
+    and a count that does not pair up reads nothing."""
+    from benchmark.harness.cell import Readings
+
+    cfg = {"hidden_size": 4, "intermediate_size": 6, "num_attention_heads": 2, "num_key_value_heads": 1}
+    events = [("reranking", {"candidates": 3}), ("reranking", {"pairs": 1}), ("fused_chain", {"kernel": 4})]
+    rec = Readings(config=cfg, traffic={}, events=events, extra={"batches": [(2, 3, [3, 3], 1)]})
+    assert flops.rerank_flops(rec) == 816
+    rec.events = events + [("reranking", {"pairs": 2})]
+    assert flops.rerank_flops(rec) == 0.0

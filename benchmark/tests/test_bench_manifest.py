@@ -23,7 +23,8 @@ def test_cell_resolves(workload):
     assert cell.end_to_end and cell.per_layer
     assert "setup_s" in [m.name for m in cell.end_to_end]
     assert all(callable(m.read) for m in cell.end_to_end + cell.per_layer)
-    assert cell.traffic["entry"] in ("run", "retrieval_batch")
+    assert cell.traffic["entry"] in cell.system.entries
+    assert callable(cell.system.build) and callable(cell.system.check)
 
 
 def test_manifest_shape():
@@ -38,6 +39,7 @@ def test_manifest_shape():
         with open(os.path.join(ROOT, c["file"]), encoding="utf-8") as f:
             conf = json.load(f)
         assert conf["reduced"] == c["reduced"] and "assumed" in conf
+        assert conf["system"].startswith(m["paths"][0] + "/systems/") and os.path.isfile(os.path.join(ROOT, conf["system"]))
     cells = {w["name"]: w for w in m["workloads"]}
     for w in cells.values():
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and len(w["why"]) <= 200

@@ -10,9 +10,8 @@ import numpy as np
 import torch
 
 from benchmark.harness import judge
-from benchmark.harness.cell import BENCH_DIR, rerank_rows
+from benchmark.harness.cell import BENCH_DIR
 from benchmark.harness.corpus import make_corpus, make_questions
-from benchmark.harness.system import System, make_minicpm
 from benchmark.reference.bm25 import DualRouteReference
 from benchmark.reference.minicpm import MiniCPMReference
 from benchmark.reference.weights import minicpm_weights
@@ -20,8 +19,9 @@ from benchmark.tests.conftest import QUERY, SEED
 
 
 def test_minicpm_reference_matches_the_port(tiny_cell):
-    cfg = tiny_cell(QUERY).config
-    scorer = make_minicpm(cfg, SEED, "cpu", 0)
+    cell = tiny_cell(QUERY)
+    cfg = cell.config
+    scorer = cell.system.make_minicpm(cfg, SEED, "cpu", 0)
     pairs = [("t1 t2 t3 doc4", "###\nrcp/doc4.txt\n\n文档4\nt5 t6 t7"),
              ("t9 t2", "###\numac/doc9.txt\n\n文档9\n" + " ".join(f"t{i}" for i in range(300)))]
     got, _ = scorer.score_pairs(pairs)
@@ -42,7 +42,7 @@ def test_pairs_and_routes_match_the_port(tmp_path, tiny_cell):
     cell = tiny_cell(QUERY)
     cfg = cell.config
     corpus = make_corpus(str(tmp_path / "c"), SEED, cfg["corpus"])
-    system = System(cfg, cell.traffic, corpus, SEED, "cpu", False)
+    system = cell.system.build(cfg, cell.traffic, corpus, SEED, "cpu", False)
     p = system.pipeline
     tokens = {t for text in corpus.texts for t in text.split()} | {"知识", *corpus.dirs}
     assert not tokens & default_stopwords()
@@ -60,7 +60,7 @@ def test_pairs_and_routes_match_the_port(tmp_path, tiny_cell):
         c, pth, allowed = ref.routes(q["query"], q.get("document"))
         assert judge.retrieval_gap(got, want, c, pth, allowed) < 1e-6
         rec = {"query": q["query"], "candidates": [(nw.node.idx, nw.score) for nw in fused[:4]]}
-        rows = rerank_rows(cfg, corpus, rec, system.doc_of)
+        rows = cell.system.rerank_rows(cfg, corpus, rec, system.doc_of)
         pairs = [(q["query"], get_node_content(nw.node, p.config.r_embed_type)) for nw in fused[:4]]
         ids, mask = system.scorer.build_inputs(pairs)
         assert rows == [list(ids[i][: mask[i].sum()]) for i in range(len(rows))]
