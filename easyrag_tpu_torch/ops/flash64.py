@@ -9,9 +9,15 @@ Logits and softmax are f32; masked logits are ``finfo(f32).min``, so rows with
 no valid key stay finite. With ``cos``/``sin`` (``[S, 64]`` f32,
 batch-shared positions) rotate-half RoPE is applied to q and k first.
 
-CUDA tensors go through ``csrc/flash64.cu`` (with RoPE, a prologue kernel
-rotates K once into a scratch tensor, then the attention kernel runs; one
-launch in the count); CPU tensors through :func:`flash64_attention_plain`.
+CUDA tensors go through ``csrc/flash64.cu``, CPU tensors through
+:func:`flash64_attention_plain`. The CUDA kernel (its design note has the
+details) is persistent: one CTA per SM walks (batch row, head, 128-row q
+tile) items, a producer warpgroup keeps Q and K/V tiles of 128 keys coming by
+TMA, and two consumer warpgroups overlap each tile's softmax with their
+``wgmma`` products. With RoPE a prologue kernel first rotates Q and K into a
+``[2, B, S, H*64]`` scratch tensor that the attention kernel loads. Rows
+whose keys are all masked (pad rows before ``kv_start``) and rows with an
+empty range write zeros. One call counts one launch.
 """
 
 from __future__ import annotations
@@ -138,7 +144,7 @@ def flash64_attention(
         raise ValueError("flash64 kernel needs 16-byte aligned q/k/v/cos/sin")
     B, S, F = q.shape
     out = torch.empty_like(q)
-    k_rot = torch.empty_like(k) if cos is not None else None
+    qk_rot = torch.empty((2, B, S, F), dtype=q.dtype, device=q.device) if cos is not None else None
     global launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -148,7 +154,7 @@ def flash64_attention(
                 kv_start.data_ptr(), kv_end.data_ptr(),
                 cos.data_ptr() if cos is not None else None,
                 sin.data_ptr() if sin is not None else None,
-                k_rot.data_ptr() if k_rot is not None else None,
+                qk_rot.data_ptr() if qk_rot is not None else None,
                 out.data_ptr(), B, S, F // 64, float(sm_scale), stream,
             ),
             "flash64_launch",
