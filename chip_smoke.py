@@ -2800,7 +2800,7 @@ def replay_step_ops(torch, cfg, params, ids, bucket, toks, k, t_tier, max_new):
     itself (``PoolRows``, K2 at R=2). Each layer's two paths start from the
     solo path's input. None when every op gives the same bits."""
     from easyrag_tpu_torch.models import decode as td
-    from easyrag_tpu_torch.models.layers import embed, qkv_proj, rms_norm, rope_tables
+    from easyrag_tpu_torch.models.layers import EAGER, decoder_layer, embed, rope_tables
     from easyrag_tpu_torch.ops.flash64 import apply_rope
 
     dev = torch.device("cuda")
@@ -2830,23 +2830,24 @@ def replay_step_ops(torch, cfg, params, ids, bucket, toks, k, t_tier, max_new):
                     pool_cache[n][:, :t] = cache[li][n][0]
                 rows = td.PoolRows(torch.arange(2, device=dev), ((0, t), (1, t)))
                 ops = {}
-                for name, x, c, norm in (("solo", h, cache[li], rms_norm),
-                                         ("pool", h.expand(2, -1, -1).contiguous(), pool_cache,
-                                          lambda x, w, e: td._row_norm(x, w, e, per_row=True))):
-                    n_out = norm(x, p["input_norm"], eps)
-                    q, kk, v = qkv_proj(cfg, p["attn"], n_out)
-                    rc, rs = cos.expand(x.shape[0], -1, -1), sin.expand(x.shape[0], -1, -1)
-                    q, kk = apply_rope(q, rc, rs), apply_rope(kk, rc, rs)
-                    vv = valid.expand(x.shape[0], -1)
-                    if name == "solo":
-                        c["k"][:, pos], c["v"][:, pos] = kk[:, 0], v[:, 0]
-                        att = td._attend_cache(cfg, q, *td._cache_operands(c, t), vv[:, None, :], dtype)
-                    else:
-                        c["k"][rows.index, pos], c["v"][rows.index, pos] = kk[:, 0], v[:, 0]
-                        att = td._attend_rows(cfg, q, c, vv[:, None, :], rows, dtype)
-                    out = td.mlp_residual(cfg, p, x, att, norm=norm)
-                    ops[name] = {"input norm": n_out[:1], "q": q[:1], "k": kk[:1], "v": v[:1],
-                                 "cache attention": att[:1], "layer output": out[:1]}
+                for name, x, c, chain in (("solo", h, cache[li], EAGER),
+                                          ("pool", h.expand(2, -1, -1).contiguous(), pool_cache, td._POOL_CHAIN)):
+                    rec = ops[name] = {"input norm": chain.norm(x, p["input_norm"], eps)[1][:1]}
+
+                    def attend(shard, scfg, q, kk, v, name=name, x=x, c=c, rec=rec):
+                        rc, rs = cos.expand(x.shape[0], -1, -1), sin.expand(x.shape[0], -1, -1)
+                        q, kk = apply_rope(q, rc, rs), apply_rope(kk, rc, rs)
+                        vv = valid.expand(x.shape[0], -1)
+                        if name == "solo":
+                            c["k"][:, pos], c["v"][:, pos] = kk[:, 0], v[:, 0]
+                            att = td._attend_cache(scfg, q, *td._cache_operands(c, t), vv[:, None, :], dtype)
+                        else:
+                            c["k"][rows.index, pos], c["v"][rows.index, pos] = kk[:, 0], v[:, 0]
+                            att = td._attend_rows(scfg, q, c, vv[:, None, :], rows, dtype)
+                        rec.update({"q": q[:1], "k": kk[:1], "v": v[:1], "cache attention": att[:1]})
+                        return att
+
+                    rec["layer output"] = decoder_layer(cfg, p, x, attend, chain)[:1]
                 for op in ops["solo"]:
                     if not torch.equal(ops["solo"][op], ops["pool"][op]):
                         return f"layer {li}, {op}"

@@ -5,8 +5,8 @@
 // fuses it, while PyTorch's eager ops make six passes over [T, D] for one
 // RMSNorm (a cast to f32, the square, the mean, two broadcast products, a
 // cast back) and two for each residual `x + h * r`. Every value here is
-// rounded where the eager ops round it (models/layers.py::rms_norm, the
-// MiniCPM branch of DecoderLayer):
+// rounded where the eager ops round it (models/layers.py::rms_norm and the
+// eager chain of layers.decoder_layer):
 //
 //   residual:  hr = bf16(f32(h) * r); x' = bf16(f32(x) + f32(hr))
 //   norm:      normed = bf16((f32(x') * rsqrt(sum(f32(x')^2) * (1/D) + eps)) * f32(w))

@@ -37,12 +37,13 @@ verify block go to spare slots past the end instead of being dropped, and
 those slots feed no emitted token.
 
 The parameter tree is the JAX package's (nested dicts, ``models/layers.py``
-linears), so trees convert leaf by leaf (``models/convert.py``). A
-tensor-parallel tree (``parallel/tp.py``) runs every layer through
-``layers.tp_layer``: one KV cache per shard on the shard's device, K3 and
-the cache attention per shard at its head counts, the row-parallel sums,
-norms, embedding and head on the first device. The decode pool's rows
-(:class:`PoolRows`) take unsharded trees only, as JAX's pool does.
+linears), so trees convert leaf by leaf (``models/convert.py``). Every
+layer runs through ``layers.decoder_layer`` with its phase's cache-writing
+attention. A tensor-parallel tree (``parallel/tp.py``) has one KV cache per
+shard on the shard's device, K3 and the cache attention per shard at its
+head counts, the row-parallel sums, norms, embedding and head on the first
+device. The decode pool's rows (:class:`PoolRows`) take unsharded trees
+only, as JAX's pool does.
 """
 
 from __future__ import annotations
@@ -59,17 +60,16 @@ from ..devices import resolve_device
 from ..ops.flash64 import apply_rope
 from ..ops.flash_attention import flash_attention, flash_attention_plain
 from .layers import (
+    EAGER,
     DecoderConfig,
+    decoder_layer,
     embed,
-    is_tp,
     linear,
-    mlp_residual,
-    qkv_proj,
+    norm_chain,
     rms_norm,
     rope_tables,
     shard_config,
     tp_devices,
-    tp_layer,
 )
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -116,11 +116,15 @@ def _prefill_layer(
     """One decoder layer over the full prompt; K/V land in ``cache[:, :S]``
     (a tensor-parallel layer: in each shard's cache, its attention at the
     shard's head counts)."""
-    if is_tp(p):
-        return tp_layer(cfg, p, x, lambda sh, scfg, q, k, v: _prefill_attend(
-            scfg, q, k, v, *(t.to(q.device) for t in (cos, sin, kv_start, kv_end)), cache[sh]))
-    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
-    return mlp_residual(cfg, p, x, _prefill_attend(cfg, q, k, v, cos, sin, kv_start, kv_end, cache))
+    return decoder_layer(cfg, p, x, lambda sh, scfg, q, k, v: _prefill_attend(
+        scfg, q, k, v, *_on_shard(q, sh, cache, cos, sin, kv_start, kv_end)))
+
+
+def _on_shard(q: torch.Tensor, shard: int, cache, *inputs) -> list:
+    """``inputs`` on ``q``'s device (ints as they are), then the layer's
+    cache on ``shard`` (a tensor-parallel layer's is a list, :func:`init_cache`)."""
+    return [t if isinstance(t, int) else t.to(q.device) for t in inputs] + [
+        cache[shard] if isinstance(cache, list) else cache]
 
 
 def _prefill_attend(cfg: DecoderConfig, q, k, v, cos, sin, kv_start, kv_end, cache) -> torch.Tensor:
@@ -194,6 +198,12 @@ def _row_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, per_row: bool =
     return (xf * torch.rsqrt(_position_means(xf, per_row) + eps) * weight.float()).to(x.dtype)
 
 
+#: the verify block's chain (:func:`_row_norm`) and the decode pool's, whose
+#: norms reduce each row alone
+_ROW_CHAIN = norm_chain(_row_norm)
+_POOL_CHAIN = norm_chain(partial(_row_norm, per_row=True))
+
+
 class PoolRows(NamedTuple):
     """The rows of a decode-pool step (``models/decode_pool.py``): row ``r``
     of the step's input is cache row ``spans[r][0]`` and attends over that
@@ -235,16 +245,11 @@ def _decode_layer(
     attention then run row by row (:class:`PoolRows`). A tensor-parallel
     layer attends on every shard against its cache; the decode pool's rows
     are not sharded."""
-    if is_tp(p):
-        if rows is not None:
-            raise ValueError("the decode pool runs unsharded trees: tensor-parallel rows are not supported")
-        return tp_layer(cfg, p, x, lambda sh, scfg, q, k, v: _decode_attend(
-            scfg, q, k, v, pos if isinstance(pos, int) else pos.to(q.device),
-            *(t.to(q.device) for t in (kv_valid, cos, sin)), cache[sh], None, x.dtype))
-    norm = partial(_row_norm, per_row=True) if rows is not None else rms_norm
-    q, k, v = qkv_proj(cfg, p["attn"], norm(x, p["input_norm"], cfg.rms_norm_eps))
-    out = _decode_attend(cfg, q, k, v, pos, kv_valid, cos, sin, cache, rows, x.dtype)
-    return mlp_residual(cfg, p, x, out, norm=norm)
+    if rows is not None and isinstance(cache, list):  # a tensor-parallel layer's per-shard caches
+        raise ValueError("the decode pool runs unsharded trees: tensor-parallel rows are not supported")
+    return decoder_layer(cfg, p, x, lambda sh, scfg, q, k, v: _decode_attend(
+        scfg, q, k, v, *_on_shard(q, sh, cache, pos, kv_valid, cos, sin), rows, x.dtype),
+        EAGER if rows is None else _POOL_CHAIN)
 
 
 def _decode_attend(cfg: DecoderConfig, q, k, v, pos, kv_valid, cos, sin, cache, rows, dtype) -> torch.Tensor:
@@ -285,16 +290,11 @@ def _verify_layer(
     is cache row ``rows.index[r]``, and norms and attention also run one row
     at a time (:class:`PoolRows`). A tensor-parallel layer attends on every
     shard against its cache with the same per-position shapes."""
-    per_row = rows is not None
-    if is_tp(p):
-        if per_row:
-            raise ValueError("the decode pool runs unsharded trees: tensor-parallel rows are not supported")
-        return tp_layer(cfg, p, x, lambda sh, scfg, q, k, v: _verify_attend(
-            scfg, q, k, v, *(t.to(q.device) for t in (slots, allowed, cos, sin)), cache[sh], None, x.dtype),
-            norm=_row_norm)
-    q, k, v = qkv_proj(cfg, p["attn"], _row_norm(x, p["input_norm"], cfg.rms_norm_eps, per_row))
-    out = _verify_attend(cfg, q, k, v, slots, allowed, cos, sin, cache, rows, x.dtype)
-    return mlp_residual(cfg, p, x, out, norm=partial(_row_norm, per_row=per_row))
+    if rows is not None and isinstance(cache, list):  # a tensor-parallel layer's per-shard caches
+        raise ValueError("the decode pool runs unsharded trees: tensor-parallel rows are not supported")
+    return decoder_layer(cfg, p, x, lambda sh, scfg, q, k, v: _verify_attend(
+        scfg, q, k, v, *_on_shard(q, sh, cache, slots, allowed, cos, sin), rows, x.dtype),
+        _ROW_CHAIN if rows is None else _POOL_CHAIN)
 
 
 def _verify_attend(cfg: DecoderConfig, q, k, v, slots, allowed, cos, sin, cache, rows, dtype) -> torch.Tensor:

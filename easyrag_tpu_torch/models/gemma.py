@@ -149,7 +149,7 @@ class GemmaCostWiseReranker(nn.Module):
     def load_tree_(self, params: Dict[str, Any]) -> "GemmaCostWiseReranker":
         """Copy a JAX-layout tree into the module (``layers.load_tree_``:
         dense, int8 or int4 linears, a dense or int8 embedding table)."""
-        return load_tree_(self, params, ("input_norm", "post_attn_norm", "pre_mlp_norm", "post_mlp_norm"))
+        return load_tree_(self, params)
 
     # -- tokenization (mirrors get_inputs_v2_5, rerankers.py:203-249) ---------
 

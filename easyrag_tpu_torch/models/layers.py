@@ -8,35 +8,32 @@ rotate-half RoPE; SiLU MLP; MiniCPM's residual scale
 Padding is a per-row key range ``[kv_start, kv_end)`` instead of a mask; the
 softcapped (Gemma2) attention takes right padding only, given as no range.
 
-Two forms share these pieces:
+Every decoder layer runs through one block, :func:`decoder_layer`, over a
+JAX-layout tree layer. Its callers hand it ``attend(shard, cfg, q, k, v)``:
+the one gate :func:`attention` at batch-shared positions (the rerankers, and
+the gte-Qwen2 embedder and yes-logit through :func:`forward_hidden`), or the
+generator's cache-writing attention (``models/decode.py``); and a
+:class:`Chain`, its norms, residual adds and SiLU * up: the eager ops, the
+kernels of ``ops/fused_norm.py`` (the rerankers) or the decoder's
+per-position norms. The rerankers hold their weights in
+:class:`DecoderLayer` modules, each a view of one tree layer.
 
-* :class:`DecoderLayer`, the rerankers' module (batch-shared positions).
-  Attention goes through the K4 port ``ops/flash_softcap.py`` for every
-  softcapped config, the K1 port ``ops/flash64.py`` for head_dim-64
-  multi-head attention, the einsum formulation otherwise;
-* the functions over a JAX-layout tree of dicts (:func:`linear`,
-  :func:`mlp`, :func:`embed`, :func:`qkv_proj`, :func:`mlp_residual`, and the
-  embedder's :func:`attention`, :func:`decoder_layer`, :func:`forward_hidden`).
-  The generator's prefill (``models/decode.py``) and the gte-Qwen2 embedder
-  (``models/qwen2.py``) share the block's projections and MLP.
-
-In both forms a linear is a leaf: dense (``w``), int8 (``w_q``/``scale``) or
-int4 (``w_p``/``scale``), each with an optional bias ``b``, computed by the
-one :func:`linear`. With ``DecoderConfig.act_quant`` (w8a8, w4a8) every
+A linear is a leaf: dense (``w``), int8 (``w_q``/``scale``) or int4
+(``w_p``/``scale``), each with an optional bias ``b``, computed by the one
+:func:`linear`. With ``DecoderConfig.act_quant`` (w8a8, w4a8) every
 projection quantizes its activations per token to int8 and contracts s8 x s8
 exactly in s32 (``torch._int_mm``), as JAX's ``layers._linear(..., a8)``.
-
-The tree form also takes the tensor-parallel trees of ``parallel/tp.py``
-(:func:`tp_layer`, :func:`row_parallel_linear`): one process drives every
-shard, and the all-reduce that JAX's compiler inserts is a sum of the
-partial products on the first device, in shard order.
+A tensor-parallel layer of ``parallel/tp.py`` holds per-shard ``attn`` and
+``mlp`` lists; one process drives every shard, and the all-reduce that JAX's
+compiler inserts is :func:`row_parallel_linear`'s sum of the partial
+products on the first device, in shard order.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,10 +41,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import int4_matvec
-from ..ops.flash64 import apply_rope, flash64_attention, masked_attention
-from ..ops.flash_attention import flash_attention
+from ..ops.flash64 import apply_rope, flash64_attention
+from ..ops.flash_attention import flash_attention, flash_attention_plain
 from ..ops.flash_softcap import flash_softcap_attention
-from ..ops.fused_norm import residual_add, residual_rms_norm, silu_mul
+from ..ops.fused_norm import residual_add, residual_add_plain, residual_rms_norm, silu_mul
 from .quant import quantize_linear_int4, quantize_linear_int8, unpack_int4
 
 
@@ -200,14 +197,14 @@ def quantize_layers_(model: nn.Module, quant: str) -> nn.Module:
 
 
 @torch.no_grad()
-def load_tree_(model: nn.Module, params: Dict[str, Any], norms: Tuple[str, ...]) -> nn.Module:
+def load_tree_(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
     """Copy a JAX-layout tree (``easyrag_tpu.models.layers.init_params`` plus
     ``heads``, layer -> ``[1, hidden]``; numpy or torch leaves) into a
-    reranker module (``embed``, ``final_norm``, ``layers``, ``heads``).
-    ``norms`` names each layer's norms. A linear may be dense, int8 or int4
-    (any bias kept) and the embedding table dense or int8: quantized bytes
-    and scales keep their dtypes, everything else takes the module's dtype;
-    heads stay f32. A w8a8 or w4a8 tree needs ``cfg.act_quant``."""
+    reranker module (``embed``, ``final_norm``, ``layers``, ``heads``;
+    each layer's norms are :func:`norm_names`'). A linear may be dense, int8
+    or int4 (any bias kept) and the embedding table dense or int8: quantized
+    bytes and scales keep their dtypes, everything else takes the module's
+    dtype; heads stay f32. A w8a8 or w4a8 tree needs ``cfg.act_quant``."""
     dev, dt = model.final_norm.device, model.final_norm.dtype
 
     def put(param: torch.Tensor, value) -> None:
@@ -220,7 +217,7 @@ def load_tree_(model: nn.Module, params: Dict[str, Any], norms: Tuple[str, ...])
         put(model.embed, params["embed"])
     put(model.final_norm, params["final_norm"])
     for layer, p in zip(model.layers, params["layers"], strict=True):
-        for name in norms:
+        for name in norm_names(model.cfg):
             put(getattr(layer, name), p[name])
         for name in PROJECTIONS:
             setattr(layer, name, leaf(p["attn" if name in ("q", "k", "v", "o") else "mlp"][name], dev, dt))
@@ -231,10 +228,9 @@ def load_tree_(model: nn.Module, params: Dict[str, Any], norms: Tuple[str, ...])
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + SiLU MLP block with MiniCPM's residual scale, or
-    (``cfg.gemma``) Gemma2's block: norms before and after both attention and
-    the GeGLU MLP, plain residuals. Each projection is a leaf
-    (:func:`leaf`) computed by :func:`linear` with ``cfg.act_quant``."""
+    """The rerankers' decoder layer: its parameters held as a module (the
+    norms, and each projection a leaf, :func:`leaf`), run by
+    :func:`decoder_layer` at batch-shared positions with the fused chain."""
 
     def __init__(self, cfg: DecoderConfig, device=None, dtype=None) -> None:
         super().__init__()
@@ -246,67 +242,24 @@ class DecoderLayer(nn.Module):
         self.k = _weight(nkv * hd, d, **kw)
         self.v = _weight(nkv * hd, d, **kw)
         self.o = _weight(d, nh * hd, **kw)
-        norms = ("post_attn_norm", "pre_mlp_norm", "post_mlp_norm") if cfg.gemma else ("post_norm",)
-        for name in norms:
+        for name in norm_names(cfg)[1:]:
             setattr(self, name, nn.Parameter(torch.ones(d, **kw), requires_grad=False))
         self.gate = _weight(cfg.intermediate_size, d, **kw)
         self.up = _weight(cfg.intermediate_size, d, **kw)
         self.down = _weight(d, cfg.intermediate_size, **kw)
 
-    def attention(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
-        """``kv_start``/``kv_end`` ``None``: right padding (pad keys follow
-        every real query), the only padding the softcapped attention takes."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
-        a8 = cfg.act_quant
-        q, k, v = linear(x, self.q, a8), linear(x, self.k, a8), linear(x, self.v, a8)
-        scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else hd ** -0.5
-        if cfg.attn_logit_softcapping:
-            # K4 has no mask input: causality alone keeps right-padded keys
-            # out of the real rows (easyrag_tpu/ops/flash_softcap.py:29-36)
-            if kv_start is not None or kv_end is not None:
-                raise ValueError("softcapped attention takes right padding only (kv_start/kv_end None)")
-            qh = apply_rope(q.reshape(b, s, nh, hd), cos[None], sin[None])
-            kh = apply_rope(k.reshape(b, s, nkv, hd), cos[None], sin[None])
-            out = flash_softcap_attention(
-                qh.reshape(b, s, nh * hd), kh.reshape(b, s, nkv * hd), v, nh, nkv, scale, cfg.attn_logit_softcapping
-            )
-        elif hd == 64 and nkv == nh:
-            out = flash64_attention(q, k, v, kv_start, kv_end, scale, cos, sin)
-        else:
-            qh = apply_rope(q.reshape(b, s, nh, hd), cos[None], sin[None])
-            kh = apply_rope(k.reshape(b, s, nkv, hd), cos[None], sin[None])
-            vh = v.reshape(b, s, nkv, hd)
-            if nkv != nh:  # grouped-query attention: KV shared over query groups
-                kh = kh.repeat_interleave(nh // nkv, dim=2)
-                vh = vh.repeat_interleave(nh // nkv, dim=2)
-            out = masked_attention(qh, kh, vh, kv_start, kv_end, scale).reshape(b, s, nh * hd)
-        return linear(out, self.o, a8)
-
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        a8 = self.cfg.act_quant
-        gate = linear(x, self.gate, a8)
-        if self.cfg.gemma:
-            act = F.gelu(gate, approximate="tanh") * linear(x, self.up, a8)
-        else:
-            act = silu_mul(gate, linear(x, self.up, a8))
-        return linear(act, self.down, a8)
+    def tree(self) -> Dict[str, Any]:
+        """The layer as a JAX-layout tree layer over its own parameters."""
+        return {
+            **{name: getattr(self, name) for name in norm_names(self.cfg)},
+            "attn": {name: getattr(self, name) for name in ("q", "k", "v", "o")},
+            "mlp": {name: getattr(self, name) for name in ("gate", "up", "down")},
+        }
 
     def forward(self, x, kv_start, kv_end, cos, sin) -> torch.Tensor:
-        eps = self.cfg.rms_norm_eps
-        if self.cfg.gemma:
-            h = self.attention(rms_norm(x, self.input_norm, eps, True), kv_start, kv_end, cos, sin)
-            x = x + rms_norm(h, self.post_attn_norm, eps, True)
-            h = self.mlp(rms_norm(x, self.pre_mlp_norm, eps, True))
-            return x + rms_norm(h, self.post_mlp_norm, eps, True)
-        # MiniCPM: the norms and residual adds through ops/fused_norm.py,
-        # which takes its kernels on the card (the eager ops on the CPU)
-        r = self.cfg.residual_scale
-        x, normed = residual_rms_norm(x, self.input_norm, eps)
-        h = self.attention(normed, kv_start, kv_end, cos, sin)
-        x, normed = residual_rms_norm(x, self.post_norm, eps, h, r)
-        return residual_add(x, self.mlp(normed), r)
+        """``kv_start``/``kv_end`` ``None``: right padding (pad keys follow
+        every real query), the only padding the softcapped attention takes."""
+        return decoder_layer(self.cfg, self.tree(), x, shared_attend(kv_start, kv_end, cos, sin), FUSED)
 
 
 # easyrag_tpu/ops/int4_matvec.py's shape gate (its VMEM budget and block
@@ -408,57 +361,109 @@ def linear(x: torch.Tensor, p: Dict[str, torch.Tensor], a8: bool = False) -> tor
     return y
 
 
-def mlp_act(p: Dict[str, Any], x: torch.Tensor, a8: bool = False) -> torch.Tensor:
-    """``silu(gate) * up`` of a tree layer's MLP, the down projection's
-    input; ``gateup`` is the fused gate+up, split at its midpoint
-    (``quant.fuse_decode_tree`` fuses equal widths only). The activation and
-    the product are taken in place in the gate's fresh buffer: at the
-    embedder's largest batch each ``[B, S, intermediate]`` buffer is ~10 GB."""
-    if "gateup" in p:
-        y = linear(x, p["gateup"], a8)
-        inter = y.shape[-1] // 2
-        gate, up = y[..., :inter], y[..., inter:]
-    else:
-        gate, up = linear(x, p["gate"], a8), linear(x, p["up"], a8)
-    return F.silu(gate, inplace=True).mul_(up)
+class Chain(NamedTuple):
+    """A layer's elementwise steps: ``norm(x, w, eps, h=None, r=1.0)`` ->
+    ``(x', rms_norm(x') * w)`` with ``x' = x + h * r`` (``x`` without
+    ``h``), ``add(x, h, r)`` -> ``x + h * r``, ``act(gate, up)`` ->
+    ``silu(gate) * up``."""
+
+    norm: Callable
+    add: Callable
+    act: Callable
 
 
-def mlp(p: Dict[str, Any], x: torch.Tensor, a8: bool = False) -> torch.Tensor:
-    """SiLU MLP of a tree layer (:func:`mlp_act`, then ``down``)."""
-    return linear(mlp_act(p, x, a8), p["down"], a8)
+def norm_chain(norm: Callable) -> Chain:
+    """The eager ops around an RMSNorm ``norm(x, w, eps)``. SiLU * up is
+    taken in place in the gate's fresh buffer: at the embedder's largest
+    batch each ``[B, S, intermediate]`` buffer is ~10 GB."""
+
+    def residual_norm(x, w, eps, h=None, r=1.0):
+        if h is not None:
+            x = x + h * r
+        return x, norm(x, w, eps)
+
+    return Chain(residual_norm, residual_add_plain, lambda gate, up: F.silu(gate, inplace=True).mul_(up))
+
+
+#: the eager ops (the embedder, yes-logit, the generator's prefill and steps)
+EAGER = norm_chain(rms_norm)
+#: ``ops/fused_norm.py``: its kernels on the card, the plain versions on the
+#: CPU (the rerankers)
+FUSED = Chain(residual_rms_norm, residual_add, silu_mul)
+
+
+def norm_names(cfg: DecoderConfig) -> Tuple[str, ...]:
+    """A layer's norms: Gemma2 has four, the others two."""
+    if cfg.gemma:
+        return ("input_norm", "post_attn_norm", "pre_mlp_norm", "post_mlp_norm")
+    return ("input_norm", "post_norm")
 
 
 def qkv_proj(cfg: DecoderConfig, p: Dict[str, Any], h: torch.Tensor):
-    """q ``[B, S, NH, D]`` and k, v ``[B, S, NKV, D]`` of a tree layer's
-    ``attn``; ``qkv`` is the fused int4 projection (one K2 launch)."""
+    """q ``[B, S, NH, D]`` and k, v ``[B, S, NKV, D]`` of a layer's ``attn``;
+    ``qkv`` is the fused int4 projection (one K2 launch)."""
     b, s, _ = h.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
-    a8 = cfg.act_quant
     if "qkv" in p:
-        y = linear(h, p["qkv"], a8)
-        qd, kd = nh * hd, nkv * hd
-        return (
-            y[..., :qd].reshape(b, s, nh, hd),
-            y[..., qd : qd + kd].reshape(b, s, nkv, hd),
-            y[..., qd + kd :].reshape(b, s, nkv, hd),
-        )
-    return (
-        linear(h, p["q"], a8).reshape(b, s, nh, hd),
-        linear(h, p["k"], a8).reshape(b, s, nkv, hd),
-        linear(h, p["v"], a8).reshape(b, s, nkv, hd),
-    )
+        q, k, v = linear(h, p["qkv"], cfg.act_quant).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q, k, v = (linear(h, p[name], cfg.act_quant) for name in ("q", "k", "v"))
+    return q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd), v.reshape(b, s, nkv, hd)
 
 
-def mlp_residual(
-    cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attn_out: torch.Tensor, norm=rms_norm
+def mlp_act(cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, act: Callable) -> torch.Tensor:
+    """The down projection's input of a layer's ``mlp``: ``act(gate, up)``
+    (Gemma2: ``gelu_tanh(gate) * up``); ``gateup`` is the fused gate+up,
+    split at its midpoint (``quant.fuse_decode_tree`` fuses equal widths
+    only)."""
+    if "gateup" in p:
+        gate, up = linear(x, p["gateup"], cfg.act_quant).chunk(2, dim=-1)
+    else:
+        gate, up = linear(x, p["gate"], cfg.act_quant), linear(x, p["up"], cfg.act_quant)
+    if cfg.gemma:
+        return F.gelu(gate, approximate="tanh") * up
+    return act(gate, up)
+
+
+def decoder_layer(
+    cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attend: Callable, chain: Chain = EAGER
 ) -> torch.Tensor:
-    """The rest of a tree layer after attention: output projection and
-    residual, post-norm SiLU MLP and residual (MiniCPM's residual scale).
-    ``norm(x, weight, eps)`` is the post-norm (the decoder's verify block
-    passes one that reduces position by position)."""
-    r, a8 = cfg.residual_scale, cfg.act_quant
-    x = x + linear(attn_out, p["attn"]["o"], a8) * r
-    return x + mlp(p["mlp"], norm(x, p["post_norm"], cfg.rms_norm_eps), a8) * r
+    """One pre-norm decoder layer (``easyrag_tpu/models/layers.py::
+    decoder_layer``): the input norm, q/k/v, ``attend(shard, shard_cfg, q,
+    k, v)`` (``[B, S, nh * hd]``, before the output projection), o and the
+    residual (MiniCPM's ``residual_scale``), the post norm, the SiLU MLP and
+    the last residual, the norms, adds and SiLU * up taken from ``chain``.
+    Gemma2 (``cfg.gemma``): JAX's four ``(1 + w)`` norms, GeGLU and plain
+    residuals, by the eager ops.
+
+    A tensor-parallel layer (:func:`is_tp`) runs ``attend`` and the MLP on
+    every shard at :func:`shard_config`'s head counts, its input sent to
+    the shard's device; o and down are :func:`row_parallel_linear`, and the
+    norms and residuals run on the first device."""
+    tp = is_tp(p)
+    attn, mlp = (p["attn"], p["mlp"]) if tp else ([p["attn"]], [p["mlp"]])
+    scfg = shard_config(cfg, len(attn)) if tp else cfg
+    a8, r, eps = cfg.act_quant, cfg.residual_scale, cfg.rms_norm_eps
+
+    def project(xs, ps):
+        return row_parallel_linear(xs, ps, a8) if tp else linear(xs[0], ps[0], a8)
+
+    if cfg.gemma:
+        h = rms_norm(x, p["input_norm"], eps, True)
+    else:
+        x, h = chain.norm(x, p["input_norm"], eps)
+    outs = [attend(s, scfg, *qkv_proj(scfg, pa, h.to(leaf_device(pa["o"])))) for s, pa in enumerate(attn)]
+    h = project(outs, [pa["o"] for pa in attn])
+    if cfg.gemma:
+        x = x + rms_norm(h, p["post_attn_norm"], eps, True)
+        h = rms_norm(x, p["pre_mlp_norm"], eps, True)
+    else:
+        x, h = chain.norm(x, p["post_norm"], eps, h, r)
+    acts = [mlp_act(scfg, pm, h.to(leaf_device(pm["down"])), chain.act) for pm in mlp]
+    h = project(acts, [pm["down"] for pm in mlp])
+    if cfg.gemma:
+        return x + rms_norm(h, p["post_mlp_norm"], eps, True)
+    return chain.add(x, h, r)
 
 
 def attention(
@@ -466,51 +471,54 @@ def attention(
     q: torch.Tensor,  # [B, S, NH, D], before RoPE
     k: torch.Tensor,  # [B, S, NKV, D]
     v: torch.Tensor,
-    kv_start: torch.Tensor,  # [B] int32
-    kv_end: torch.Tensor,
+    kv_start: Optional[torch.Tensor],  # [B] int32; None: right padding
+    kv_end: Optional[torch.Tensor],
     cos: torch.Tensor,  # [S, D] f32, batch-shared positions
     sin: torch.Tensor,
 ) -> torch.Tensor:
-    """The tree form's attention (``easyrag_tpu/models/layers.py::attention``
-    between the projections), ``[B, S, NH*D]`` before the output projection.
-    Padding is a per-row key range. JAX's gate for the stock kernel
-    (``layers.py:240-245``, ``:321``), on the inputs alone: a head dim that
-    is a multiple of 64 at ``S % 128 == 0`` takes K3, whose CUDA kernel
-    takes head dims up to 512 and raises past them (on the CPU its
-    plain version runs); the einsum formulation runs otherwise (the 64-token bucket of a
-    short query). Query rows outside the
-    key range attend to the range's keys where JAX's segment ids pair them
-    with pad keys; no real row reads a pad row, so real rows agree."""
+    """The attention between the projections at batch-shared positions,
+    ``[B, S, NH*D]``, its kernel picked from its inputs alone in JAX's order
+    (``easyrag_tpu/models/layers.py:240-310``):
+
+    * a softcap: K4 (``ops/flash_softcap.py``), which has no mask input, so
+      the padding must be on the right, given as no range (causality then
+      keeps pad keys out of every real row);
+    * head dim 64 with as many KV heads as query heads: K1
+      (``ops/flash64.py``), RoPE in the kernel;
+    * a head dim that is a multiple of 64 at ``S % 128 == 0``: K3
+      (``ops/flash_attention.py``);
+    * otherwise K3's plain version, the einsum formulation (the 64-token
+      bucket of a short query).
+
+    Elsewhere padding is a per-row key range. Query rows outside it attend
+    to the range's keys where JAX's segment ids pair them with pad keys; no
+    real row reads a pad row, so real rows agree. On the CPU every kernel
+    runs its plain version."""
     b, s, nh, hd = q.shape
     nkv = k.shape[2]
-    if cfg.attn_logit_softcapping:
-        raise ValueError("the tree form has no softcap: Gemma2 attention runs through DecoderLayer")
     scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else hd ** -0.5
-    qh = apply_rope(q, cos[None], sin[None])
-    kh = apply_rope(k, cos[None], sin[None])
-    if hd % 64 == 0 and s % 128 == 0:
-        return flash_attention(
-            qh.reshape(b, s, nh * hd), kh.reshape(b, s, nkv * hd), v.reshape(b, s, nkv * hd).contiguous(),
-            kv_start, kv_end, scale, nkv,
-        )
-    vh = v
-    if nkv != nh:  # grouped-query attention: KV shared over query groups
-        kh = kh.repeat_interleave(nh // nkv, dim=2)
-        vh = v.repeat_interleave(nh // nkv, dim=2)
-    return masked_attention(qh, kh, vh, kv_start, kv_end, scale).reshape(b, s, nh * hd)
+    if hd == 64 and nkv == nh and not cfg.attn_logit_softcapping:
+        q, k, v = (t.reshape(b, s, nh * hd).contiguous() for t in (q, k, v))
+        return flash64_attention(q, k, v, kv_start, kv_end, scale, cos, sin)
+    q = apply_rope(q, cos[None], sin[None]).reshape(b, s, nh * hd)
+    k = apply_rope(k, cos[None], sin[None]).reshape(b, s, nkv * hd)
+    v = v.reshape(b, s, nkv * hd).contiguous()
+    if cfg.attn_logit_softcapping:
+        if kv_start is not None or kv_end is not None:
+            raise ValueError("softcapped attention takes right padding only (kv_start/kv_end None)")
+        return flash_softcap_attention(q, k, v, nh, nkv, scale, cfg.attn_logit_softcapping)
+    kernel = flash_attention if hd % 64 == 0 and s % 128 == 0 else flash_attention_plain
+    return kernel(q, k, v, kv_start, kv_end, scale, nkv)
 
 
-def decoder_layer(
-    cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, kv_start, kv_end, cos, sin
-) -> torch.Tensor:
-    """One pre-norm tree layer (``layers.py::decoder_layer`` without Gemma);
-    a tensor-parallel layer (:func:`tp_layer`) runs :func:`attention` on
-    every shard at the shard's head counts."""
-    if is_tp(p):
-        return tp_layer(cfg, p, x, lambda s, scfg, q, k, v: attention(
-            scfg, q, k, v, *(t.to(q.device) for t in (kv_start, kv_end, cos, sin))))
-    q, k, v = qkv_proj(cfg, p["attn"], rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
-    return mlp_residual(cfg, p, x, attention(cfg, q, k, v, kv_start, kv_end, cos, sin))
+def shared_attend(kv_start, kv_end, cos, sin) -> Callable:
+    """:func:`decoder_layer`'s ``attend`` at batch-shared positions:
+    :func:`attention`, its ranges and tables sent to each shard's device."""
+
+    def attend(shard, cfg, q, k, v):
+        return attention(cfg, q, k, v, *(t if t is None else t.to(q.device) for t in (kv_start, kv_end, cos, sin)))
+
+    return attend
 
 
 def forward_hidden(
@@ -521,16 +529,20 @@ def forward_hidden(
 ) -> torch.Tensor:
     """The decoder stack over a tree (``layers.py::forward_hidden``): the
     final-normed hidden state ``[B, S, D]``, positions ``0..S-1`` shared by
-    the batch."""
-    if cfg.gemma:
-        raise ValueError("the tree form has no Gemma2 block: it runs through DecoderLayer")
+    the batch. A softcapped config (Gemma2) takes right padding only."""
     dev = input_ids.device
-    cos, sin = rope_tables(input_ids.shape[1], cfg.hd, cfg.rope_theta, device=dev)
-    kv_start, kv_end = (torch.from_numpy(a).to(dev) for a in key_ranges(attention_mask.cpu().numpy()))
+    ranges = key_ranges(attention_mask.cpu().numpy())
+    if cfg.attn_logit_softcapping:
+        if ranges[0].any():
+            raise ValueError("softcapped attention takes right padding only")
+        ranges = (None, None)
+    else:
+        ranges = tuple(torch.from_numpy(a).to(dev) for a in ranges)
+    attend = shared_attend(*ranges, *rope_tables(input_ids.shape[1], cfg.hd, cfg.rope_theta, device=dev))
     h = embed(cfg, params["embed"], input_ids, params["final_norm"].dtype)
     for idx in range(cfg.num_hidden_layers):
-        h = decoder_layer(cfg, params["layers"][idx], h, kv_start, kv_end, cos, sin)
-    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        h = decoder_layer(cfg, params["layers"][idx], h, attend)
+    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps, cfg.gemma)
 
 
 def embed(
@@ -653,28 +665,3 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[0])
     return x.float() @ w.float().t()
-
-
-def tp_layer(cfg: DecoderConfig, p: Dict[str, Any], x: torch.Tensor, attend, norm=rms_norm) -> torch.Tensor:
-    """One pre-norm layer over a tensor-parallel layer ``p``, ``x`` on the
-    first device. The input norm runs there once and its output goes to
-    every shard; shard ``s`` projects q, k and v with its rows
-    (:func:`qkv_proj` at :func:`shard_config`'s head counts) and
-    ``attend(s, shard_cfg, q, k, v)`` gives its ``[..., nh/mp * hd]``
-    attention output; o is row parallel. The post norm, then per shard
-    ``silu(gate) * up`` over its slice of the MLP, and a row-parallel down
-    projection. Residual adds (MiniCPM's ``residual_scale``) run on the
-    first device. ``norm(x, weight, eps)`` is both norms (the verify block
-    passes one that reduces position by position)."""
-    mp = len(p["attn"])
-    scfg = shard_config(cfg, mp)
-    a8, r, eps = cfg.act_quant, cfg.residual_scale, cfg.rms_norm_eps
-    h = norm(x, p["input_norm"], eps)
-    outs = []
-    for s, pa in enumerate(p["attn"]):
-        q, k, v = qkv_proj(scfg, pa, h.to(leaf_device(pa["q"])))
-        outs.append(attend(s, scfg, q, k, v))
-    x = x + row_parallel_linear(outs, [pa["o"] for pa in p["attn"]], a8) * r
-    h = norm(x, p["post_norm"], eps)
-    acts = [mlp_act(pm, h.to(leaf_device(pm["down"])), a8) for pm in p["mlp"]]
-    return x + row_parallel_linear(acts, [pm["down"] for pm in p["mlp"]], a8) * r

@@ -185,7 +185,7 @@ class MiniCPMLayerWiseReranker(nn.Module):
     def load_tree_(self, params: Dict[str, Any]) -> "MiniCPMLayerWiseReranker":
         """Copy a JAX-layout tree into the module (``layers.load_tree_``:
         dense, int8 or int4 linears, a dense or int8 embedding table)."""
-        return load_tree_(self, params, ("input_norm", "post_norm"))
+        return load_tree_(self, params)
 
     @classmethod
     def from_pretrained(cls, model_dir: str, quant: str = "", device="cuda", dtype: torch.dtype = torch.bfloat16,
@@ -248,10 +248,7 @@ class MiniCPMLayerWiseReranker(nn.Module):
         ``rerank.forward`` (the layers and the scores' host read), and one
         ``fused_chain`` event (:func:`counted_chain`)."""
         with trace("rerank.prep"):
-            ids_np, mask_np = self.build_inputs(pairs)
-            ranges, last_idx, rope = self._prepare(mask_np)
-            hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(self.final_norm.device),
-                           self.final_norm.dtype)
+            hidden, ranges, last_idx, rope, _ = self._embed_pairs(pairs)
         cutoff = self.cutoff_layer
         with trace("rerank.forward"), counted_chain():
             if judge and self.efficient_layers:
@@ -274,15 +271,21 @@ class MiniCPMLayerWiseReranker(nn.Module):
         rope = rope_tables(mask_np.shape[1], self.cfg.hd, self.cfg.rope_theta, device=dev)
         return ranges, last_idx, rope
 
+    def _embed_pairs(self, pairs: List[Tuple[str, str]]):
+        """A batch's inputs on the device: the embedded rows, :meth:`_prepare`'s
+        ranges, last real index and RoPE tables, and the host mask."""
+        ids_np, mask_np = self.build_inputs(pairs)
+        ranges, last_idx, rope = self._prepare(mask_np)
+        hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(self.final_norm.device), self.final_norm.dtype)
+        return hidden, ranges, last_idx, rope, mask_np
+
     @torch.inference_mode()
     def score_pairs_carry(self, pairs: List[Tuple[str, str]]) -> Tuple[np.ndarray, Dict[str, Any]]:
         """Cascade stage 1: ``score_pairs(pairs)`` at ``cutoff_layer`` (the
         judge layer while the cascade runs it) and the carry, ``{"hidden":
         [B, S, D] on the device, after the last layer run, "mask": the host
         mask}``, so stage 2 resumes there."""
-        ids_np, mask_np = self.build_inputs(pairs)
-        ranges, last_idx, rope = self._prepare(mask_np)
-        hidden = embed(self.cfg, self.embed, torch.from_numpy(ids_np).to(self.final_norm.device), self.final_norm.dtype)
+        hidden, ranges, last_idx, rope, mask_np = self._embed_pairs(pairs)
         with counted_chain():
             hidden = self._segment(hidden, ranges, rope, 0, self.cutoff_layer)
         scores = self._layer_score(hidden, self.cutoff_layer, last_idx, scale_head_input=self.use_efficient == 0)

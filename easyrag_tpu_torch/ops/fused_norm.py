@@ -1,10 +1,11 @@
 """The MiniCPM decoder layer's elementwise chain (``csrc/fused_norm.cu``):
-residual add + RMSNorm, the residual add alone, and SiLU times up.
+residual add + RMSNorm, the residual add alone, and SiLU times up, the
+rerankers' chain (``models/layers.py::FUSED``) in ``layers.decoder_layer``.
 
 :func:`residual_rms_norm`, :func:`residual_add` and :func:`silu_mul` choose
 by device alone: CUDA tensors go to the ``*_kernel`` wrappers, CPU tensors
-to the plain versions, which are the eager ops of ``models/layers.py``
-unchanged. The wrappers take bf16, contiguous, 16-byte aligned tensors of
+to the plain versions, which are the eager ops of ``models/layers.py``'s
+eager chain. The wrappers take bf16, contiguous, 16-byte aligned tensors of
 one shape on one device, with a last axis that is a multiple of 8 (at most
 ``MAX_D`` for the norm), and raise on anything else and on a failed build or
 launch: there is no fallback on the card. The kernels round where the eager

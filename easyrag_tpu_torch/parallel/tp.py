@@ -14,7 +14,7 @@ The Megatron layout of the JAX package:
   replicated work once.
 
 JAX annotates the arrays and XLA inserts the all-reduces. The port has no
-such compiler: the layer code (``models/layers.py::tp_layer``,
+such compiler: the layer code (``models/layers.py::decoder_layer``,
 ``row_parallel_linear``) copies the row-parallel partial products to the
 first device and sums them there in shard order, so the result is the same
 on every run. Requires ``num_attention_heads % mp == 0`` and the KV heads

@@ -6,9 +6,10 @@ before the kernels (``layers.rms_norm``, ``x + h * r``, ``F.silu(g) * u``) bit
 for bit, in bf16 and f32; the kernels' rounding points, written out in f32,
 give the same bits (the residual and the activation) or lie within one bf16
 ulp (the norm, whose f32 sum of squares is taken in another order); a
-MiniCPM ``DecoderLayer`` on the CPU takes the plain path and returns what
-the eager forward returns; the reranker's ``fused_chain`` event counts
-plain calls. No JAX here: the file also holds the card's tests.
+MiniCPM ``DecoderLayer`` (``layers.decoder_layer`` with the fused chain)
+on the CPU takes the plain path and returns what the eager forward
+returns; the reranker's ``fused_chain`` event counts plain calls. No JAX
+here: the file also holds the card's tests.
 
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version at the reranker's shapes (``[32 x 1216, 2304]`` and
@@ -56,11 +57,13 @@ def _ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _eager_forward(layer: DecoderLayer, x, kv_start, kv_end, cos, sin):
-    """The MiniCPM branch of ``DecoderLayer.forward`` as the eager ops ran it
-    before the fused chain."""
+    """A MiniCPM ``DecoderLayer`` as the eager ops ran it before the fused
+    chain: the one attention gate between the projections, every other
+    step written out."""
     cfg, eps, r = layer.cfg, layer.cfg.rms_norm_eps, layer.cfg.residual_scale
     a8 = cfg.act_quant
-    h = layer.attention(rms_norm(x, layer.input_norm, eps), kv_start, kv_end, cos, sin)
+    q, k, v = layers.qkv_proj(cfg, layer.tree()["attn"], rms_norm(x, layer.input_norm, eps))
+    h = linear(layers.attention(cfg, q, k, v, kv_start, kv_end, cos, sin), layer.o, a8)
     x = x + h * r
     m = rms_norm(x, layer.post_norm, eps)
     h = linear(F.silu(linear(m, layer.gate, a8)) * linear(m, layer.up, a8), layer.down, a8)

@@ -179,7 +179,8 @@ def main() -> int:
     cos, sin = layers.rope_tables(S, cfg.hd, cfg.rope_theta, device=dev)
 
     def eager_layer():
-        h1 = layer.attention(rms_norm(hx, layer.input_norm, EPS), kv_start, kv_end, cos, sin)
+        q, k, v = layers.qkv_proj(cfg, layer.tree()["attn"], rms_norm(hx, layer.input_norm, EPS))
+        h1 = linear(layers.attention(cfg, q, k, v, kv_start, kv_end, cos, sin), layer.o)
         x1 = hx + h1 * r
         m = rms_norm(x1, layer.post_norm, EPS)
         return x1 + linear(F.silu(linear(m, layer.gate)) * linear(m, layer.up), layer.down) * r
@@ -203,13 +204,11 @@ def main() -> int:
     pairs = prof_tool.make_pairs(32, cs.SEED)
     counts = []
     off = events.on(lambda kind, p: counts.append(p) if kind == "fused_chain" else None)
-    plain_fns = {"residual_rms_norm": fn.residual_rms_norm_plain, "residual_add": fn.residual_add_plain,
-                 "silu_mul": fn.silu_mul_plain}
-    fused_fns = {k: getattr(layers, k) for k in plain_fns}
+    plain_chain = layers.Chain(fn.residual_rms_norm_plain, fn.residual_add_plain, fn.silu_mul_plain)
+    fused_chain = layers.FUSED
 
-    def batches(fns):
-        for k, f in fns.items():
-            setattr(layers, k, f)
+    def batches(chain):
+        layers.FUSED = chain  # the rerankers' layers read the chain at each call
         scores = scorer.score_pairs(pairs)[0]  # warm-up
         torch.cuda.synchronize()
         walls = []
@@ -221,14 +220,13 @@ def main() -> int:
         return scores, walls
 
     try:
-        fused_scores, fused_walls = batches(fused_fns)
+        fused_scores, fused_walls = batches(fused_chain)
         fused_counts = list(counts)
-        eager_scores, eager_walls = batches(plain_fns)
-        fused_scores2, fused_walls2 = batches(fused_fns)
+        eager_scores, eager_walls = batches(plain_chain)
+        fused_scores2, fused_walls2 = batches(fused_chain)
     finally:
         off()
-        for k, f in fused_fns.items():
-            setattr(layers, k, f)
+        layers.FUSED = fused_chain
     say({"reranker": "minicpm cutoff 28", "padded_length": int(scorer.build_inputs(pairs)[0].shape[1]),
          "fused_batch_ms": fused_walls + fused_walls2, "eager_batch_ms": eager_walls,
          "fused_chain_events": fused_counts[:2], "events_per_batch": len(fused_counts) / (1 + args.batches),

@@ -59,7 +59,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke
     from easyrag_tpu_torch.models import decode as td
-    from easyrag_tpu_torch.models.layers import apply_rope, linear, mlp, qkv_proj, rms_norm, rope_tables
+    from easyrag_tpu_torch.models.layers import EAGER, apply_rope, linear, mlp_act, qkv_proj, rms_norm, rope_tables
     from easyrag_tpu_torch.ops.flash_attention import flash_attention_plain
 
     ap = argparse.ArgumentParser()
@@ -102,7 +102,7 @@ def main() -> int:
             x = rec["o_proj_residual"] = x + linear(out, p["attn"]["o"]) * r
             rec["post_norm_mean"] = mean_sq(x, by_row)
             n2 = rec["post_norm"] = norm(x, p["post_norm"])
-            x = rec["mlp_residual"] = x + mlp(p["mlp"], n2) * r
+            x = rec["mlp_residual"] = x + linear(mlp_act(cfg, p["mlp"], n2, EAGER.act), p["mlp"]["down"]) * r
             return x, rec
 
         def head(h, norm):
